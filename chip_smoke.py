@@ -15,7 +15,22 @@ Phases, one or more lines each:
               render 1, upsample 1, fused 3) and ``"pallas"``, held against
               ``impl="jnp"``; one 4K frame; uint8 output and composite;
 5. times   -- ms per 1080p frame for auto / pallas / jnp, and each
-              kernel's time beside its plain version's.
+              kernel's time beside its plain version's;
+6. normals and windowed kernels against their plain versions on the card:
+              the normals render at levels 1-4 of a 1080p scene in both
+              ABIs (slope planes, raw normals), the windowed resolve at
+              the 1080p full- and half-res planes and the 8K plane, with
+              displacements past the window and a null history;
+7. engine  -- ``AmbientOcclusionEngine(params=preset("ULTRA"))`` on four
+              1080p frames with normals under auto and pallas against jnp
+              (launch counts asserted), normals vs depth-only, one 4K
+              normals frame in both layouts, the tunable sweep;
+8. temporal -- ``TemporalAOEngine`` over 1080p dolly sequences at HIGH and
+              ULTRA, resolve_level 0 and 1, a static camera, motion
+              vectors and unbounded motion, against impl="jnp", with the
+              launch counts of every frame asserted;
+9. times   -- ms per frame of the ULTRA, 4K-normals and temporal paths,
+              and the new kernels beside their plain versions.
 
 Then a JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
@@ -31,7 +46,11 @@ import sys
 import time
 
 TOL = 1e-5  # kernel vs plain version, both float32 on the card
+RTOL_NULL_DEPTH = 1e-6  # history depth of a null history (1e6 in float32)
 SEED = 7
+COUNT_KEYS = ("render_ao_level", "render_ao_level_normals",
+              "blur_upsample_step", "fused_render_upsample_step",
+              "windowed_resolve")
 
 
 def _card() -> str:
@@ -47,7 +66,8 @@ class Checks:
     def __init__(self):
         self.worst: dict[str, float] = {}
 
-    def close(self, kernel: str, label: str, got, want, tol=TOL) -> float:
+    def close(self, kernel: str, label, got, want, tol=TOL,
+              quiet=False) -> float:
         import torch
 
         if got.shape != want.shape:
@@ -56,12 +76,345 @@ class Checks:
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{label}: non-finite values")
         err = float((got.float() - want.float()).abs().max())
-        print(f"  {label}: max_abs_err={err:.3e}", flush=True)
+        if not quiet:
+            print(f"  {label}: max_abs_err={err:.3e}", flush=True)
         if not err <= tol:
             raise RuntimeError(f"{label}: max_abs_err {err} > {tol}")
         if kernel:
             self.worst[kernel] = max(self.worst.get(kernel, 0.0), err)
         return err
+
+
+def counts(**nonzero) -> dict:
+    """A full launch-count dict: the named kernels, every other one 0."""
+    out = dict.fromkeys(COUNT_KEYS, 0)
+    out.update(nonzero)
+    return out
+
+
+def expect_counts(K, label: str, want: dict) -> None:
+    got = K.launch_counts()
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got} != {want}")
+
+
+def phase_new_kernels(chk, dev, K, P, R, T, F, cam, h0, w0, hp, wp):
+    """6. The normals render (both ABIs) and the windowed resolve against
+    their plain versions at the shapes the 1080p paths give them."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.params import AOParams
+
+    print("normals and windowed kernels vs plain (seed %d):" % SEED)
+    z, n = F.spheres_on_plane(h0, w0, cam, seed=SEED, with_normals=True)
+    zt = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    nt = torch.as_tensor(n, dtype=torch.float32, device=dev)
+    zp = torch.nn.functional.pad(zt[None], (0, wp - w0, 0, hp - h0),
+                                 mode="replicate")[0]
+    pyr = [lvl.contiguous() for lvl in P.build_pyramid(zp, 4)]
+    spyr = R.slope_pyramid(nt, cam.tan_half_fov_h, hp, wp, 4, h0=h0, w0=w0)
+    npyr = R.normals_pyramid(nt, hp, wp, 4)
+    for ex in (True, False):
+        par = AOParams(use_normals=True, exhaustive=ex)
+        for abi, pyr_n in (("slopes", spyr), ("normals", npyr)):
+            kw = [{"slopes_ds": g} if abi == "slopes" else {"normals_ds": g}
+                  for g in pyr_n]
+            for l in range(1, 5):
+                chk.close("render_normals",
+                          f"render_normals {abi} l{l} "
+                          f"{tuple(pyr[l].shape)} exhaustive={ex}",
+                          K.render_ao_level_normals(pyr[l], l, wp, cam, par,
+                                                    **kw[l]),
+                          K.render_ao_level_normals_plain(
+                              pyr[l], l, wp, cam, par, **kw[l]))
+    rng = np.random.default_rng(SEED)
+    for (h, w), r in (((h0, w0), 4), ((h0 // 2, w0 // 2), 2),
+                      ((4320, 7680), 4)):
+        ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        prev_ao = torch.as_tensor(rng.uniform(0.0, 1.0, (h, w)),
+                                  dtype=torch.float32, device=dev)
+        prev_d = torch.as_tensor(rng.uniform(0.05, 1.0, (h, w)),
+                                 dtype=torch.float32, device=dev)
+        ip = (ii + (torch.rand(h, w, device=dev) * 2 - 1) * (r + 2))
+        jp = (jj + (torch.rand(h, w, device=dev) * 2 - 1) * (r + 2))
+        ip[0, :4] = torch.tensor([-r - 1.5, r + 1.0, 0.0, r + 0.25])
+        got = K.windowed_resolve(prev_ao, prev_d, ip, jp, r)
+        want = K.windowed_resolve_plain(prev_ao, prev_d, ip, jp, r)
+        for f, g, wv in zip(("ao", "depth"), got, want):
+            chk.close("windowed", f"windowed {f} ({h}, {w}) r={r}", g, wv)
+        null_ao, null_d = T.initial_state(h, w, device=dev)
+        got = K.windowed_resolve(null_ao, null_d, ip, jp, r)
+        want = K.windowed_resolve_plain(null_ao, null_d, ip, jp, r)
+        chk.close("windowed", f"windowed null-history ao ({h}, {w}) r={r}",
+                  got[0], want[0])
+        rel = float(((got[1] - want[1]).abs() / want[1].abs().clamp(min=1.0)
+                     ).max())
+        print(f"  windowed null-history depth ({h}, {w}) r={r}: "
+              f"max_rel_err={rel:.3e}", flush=True)
+        if not rel <= RTOL_NULL_DEPTH:
+            raise RuntimeError(f"null-history depth rel err {rel}")
+        del prev_ao, prev_d, ip, jp, got, want, null_ao, null_d
+    torch.cuda.empty_cache()
+    return pyr, spyr
+
+
+def phase_engine(chk, dev, K, F, cam, h0, w0):
+    """7. The ULTRA engine on four 1080p frames; returns the inputs the
+    timing phase reuses and the main path's launch counts."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models.pipeline import AmbientOcclusionEngine
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.ops import _build
+
+    print("engine (ULTRA, normals):")
+    zn = [F.spheres_on_plane(h0, w0, cam, seed=s, with_normals=True)
+          for s in range(4)]
+    z4 = torch.as_tensor(np.stack([a for a, _ in zn]), dtype=torch.float32,
+                         device=dev)
+    n4 = torch.as_tensor(np.stack([b for _, b in zn]), dtype=torch.float32,
+                         device=dev)
+    engines = {impl: AmbientOcclusionEngine(cam, preset("ULTRA"), impl=impl)
+               for impl in ("auto", "pallas", "jnp")}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out_auto = engines["auto"].render(z4, normals=n4)
+    torch.cuda.synchronize()
+    main_counts = K.launch_counts()
+    print(f"  main path, batch (4, {h0}, {w0}) ULTRA auto: launches "
+          f"{main_counts}")
+    expect_counts(K, "ULTRA auto", counts(render_ao_level_normals=4,
+                                          blur_upsample_step=4))
+    if K.render_ao_level_normals.raw_launches != 0:
+        raise RuntimeError("ULTRA auto took the raw-normals ABI")
+    K.reset_launch_counts()
+    out_pallas = engines["pallas"].render(z4, normals=n4)
+    expect_counts(K, "ULTRA pallas", counts(render_ao_level_normals=4,
+                                            blur_upsample_step=4))
+    if K.render_ao_level_normals.raw_launches != 4:
+        raise RuntimeError("ULTRA pallas did not take the raw-normals ABI "
+                           f"({K.render_ao_level_normals.raw_launches})")
+    K.reset_launch_counts()
+    out_jnp = engines["jnp"].render(z4, normals=n4)
+    expect_counts(K, "ULTRA jnp", counts())
+    chk.close("", "ULTRA batch 4x1080p auto vs jnp", out_auto, out_jnp)
+    chk.close("", "ULTRA batch 4x1080p pallas vs jnp", out_pallas, out_jnp)
+    plain = AmbientOcclusionEngine(cam, preset("HIGH")).render(z4)
+    diff = float((out_auto - plain).abs().max())
+    print(f"  normals vs depth-only: max diff {diff:.3e}")
+    if not diff > 1e-3:
+        raise RuntimeError(f"normals output equals depth-only ({diff})")
+    z4k, n4k = F.spheres_on_plane(2160, 3840, cam, seed=SEED,
+                                  with_normals=True)
+    d4k = torch.as_tensor(z4k, dtype=torch.float32, device=dev)
+    n4k_cl = torch.as_tensor(n4k, dtype=torch.float32, device=dev)
+    n4k_cf = n4k_cl.permute(2, 0, 1).contiguous()
+    want4k = engines["jnp"].render(d4k, normals=n4k_cl)
+    for layout, nn in (("channel-last", n4k_cl), ("channel-first", n4k_cf)):
+        chk.close("", f"ULTRA 4K {layout} auto vs jnp",
+                  engines["auto"].render(d4k, normals=nn), want4k)
+    lib = _build.load()
+    built = sorted(_build.BUILD_DIR.glob("*.so"))
+    eng, ref = engines["auto"], engines["jnp"]
+    for s_, r_, b_ in ((0.5, 1.5, -7.0), (2.0, 5.0, -3.0), (4.0, 9.0, -1.5)):
+        for e in (eng, ref):
+            e.strength, e.rejection_falloff, e.blur_tolerance = s_, r_, b_
+        chk.close("", f"ULTRA sweep strength={s_} falloff={r_} blur={b_}",
+                  eng.render(z4[0], normals=n4[0]),
+                  ref.render(z4[0], normals=n4[0]))
+    if _build.load() is not lib or sorted(_build.BUILD_DIR.glob("*.so")) \
+            != built:
+        raise RuntimeError("the tunable sweep rebuilt the library")
+    print("  tunable sweep: 3 settings, no rebuild")
+    return z4, n4, d4k, n4k_cl, main_counts
+
+
+def dolly_frames(F, cam, h0, w0, t_n):
+    """1080p frames of a static world from an eye moving along x and z,
+    with normals, and the world->eye view matrix of each."""
+    import numpy as np
+
+    frames, views = [], []
+    for t in range(t_n):
+        eye = (0.05 * t, 0.0, 0.04 * t)
+        z, n = F.spheres_on_plane(h0, w0, cam, seed=SEED, with_normals=True,
+                                  eye=eye)
+        v = np.eye(4)
+        v[:3, 3] = [-e for e in eye]
+        frames.append((z.astype(np.float32), n.astype(np.float32)))
+        views.append(v)
+    return frames, views
+
+
+def phase_temporal(chk, dev, K, F, cam, h0, w0):
+    """8. TemporalAOEngine over 1080p sequences against impl="jnp", with
+    every frame's launch counts; returns what the timing phase reuses and
+    the launch counts of the main temporal run (HIGH, moving camera,
+    resolve_level 0)."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models.pipeline import (TemporalAOEngine, render_frame,
+                                             render_frame_temporal)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import TemporalParams
+
+    print("temporal (TemporalAOEngine, 1080p dolly):")
+    t_n = 8
+    frames, views = dolly_frames(F, cam, h0, w0, t_n)
+    dz = [torch.as_tensor(z, device=dev) for z, _ in frames]
+    dn = [torch.as_tensor(n, device=dev) for _, n in frames]
+    high = {0: counts(render_ao_level=1, blur_upsample_step=1,
+                      fused_render_upsample_step=3),
+            1: counts(render_ao_level=2, blur_upsample_step=2,
+                      fused_render_upsample_step=2)}
+    ultra = counts(render_ao_level_normals=4, blur_upsample_step=4)
+    main_total = None
+    # a static camera over a noisy depth buffer, and a 1.5-pixel pan given
+    # as motion vectors
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noisy = [(dz[0] + 2e-3 * torch.randn(dz[0].shape, generator=gen,
+                                         device=dev)).clamp(1e-3, 1.0)
+             for _ in range(3)]
+    mv = torch.zeros(h0, w0, 2, device=dev)
+    mv[..., 1] = -1.5
+    cases = [  # (label, preset, resolve_level, motion kind, frames)
+        ("HIGH moving", "HIGH", 0, "view", dz),
+        ("HIGH moving", "HIGH", 1, "view", dz),
+        ("ULTRA moving", "ULTRA", 0, "view", dz),
+        ("ULTRA moving", "ULTRA", 1, "view", dz),
+        ("HIGH static", "HIGH", 0, None, noisy),
+        ("HIGH static", "HIGH", 1, None, noisy),
+        ("HIGH motion vectors", "HIGH", 0, "mv", dz[:3]),
+    ]
+    for label, name, rl, kind, seq in cases:
+        par = preset(name)
+        eng = TemporalAOEngine(cam, par, resolve_level=rl)
+        ref = TemporalAOEngine(cam, par, impl="jnp", resolve_level=rl)
+        base = ultra if name == "ULTRA" else high[rl]
+        worst, total = 0.0, counts()
+        for t, depth in enumerate(seq):
+            kw = {"normals": dn[t]} if name == "ULTRA" else {}
+            if kind == "view":
+                kw["view"] = views[t]
+            elif kind == "mv" and t > 0:
+                kw["motion"] = mv
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            got = eng.render(depth, **kw)
+            torch.cuda.synchronize()
+            moving = kind is not None and t > 0
+            expect_counts(K, f"{label} rl={rl} frame {t}",
+                          {**base, "windowed_resolve": int(moving)})
+            total = {k: total[k] + v for k, v in K.launch_counts().items()}
+            want = ref.render(depth, **kw)
+            worst = max(worst, chk.close("", None, got, want, quiet=True))
+            if t > 0:  # the history is used: not the single-frame AO
+                single = render_frame(depth, cam, par,
+                                      normals=kw.get("normals"))
+                if not float((got - single).abs().max()) > 1e-4:
+                    raise RuntimeError(f"{label} rl={rl} frame {t}: equals "
+                                       "the single-frame AO (no history)")
+        print(f"  {label} resolve_level={rl}, {len(seq)} frames: "
+              f"auto vs jnp max_abs_err={worst:.3e}, launches {total}",
+              flush=True)
+        if (label, rl) == ("HIGH moving", 0):
+            main_total = total
+    # unbounded motion: the history sample is a plain gather, no kernel
+    tp = TemporalParams(max_displacement=None)
+    m = np.eye(4)
+    m[0, 3] = 0.3
+    st = (torch.rand(h0, w0, device=dev), dz[0].clone())
+    K.reset_launch_counts()
+    a, _ = render_frame_temporal(dz[1], st, cam, preset("HIGH"), tp, motion=m)
+    expect_counts(K, "max_displacement=None", high[0])
+    b, _ = render_frame_temporal(dz[1], st, cam, preset("HIGH"), tp,
+                                 motion=m, impl="jnp")
+    chk.close("", "max_displacement=None frame auto vs jnp", a, b)
+    # the null history: the resolved AO is the frame's own, exactly
+    a, _ = render_frame_temporal(dz[1], None, cam, preset("HIGH"), motion=m)
+    chk.close("", "null-history frame == single-frame AO (exact)", a,
+              render_frame(dz[1], cam, preset("HIGH")), tol=0.0)
+    return dz, dn, views, main_total
+
+
+def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
+                    views):
+    """9. ms per frame of the new paths and the new kernels beside their
+    plain versions at the shapes the paths give them."""
+    import torch
+
+    from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
+                                             render_frame_temporal)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import AOParams, TemporalParams
+    from tpuao_torch.utils.camera import relative_motion
+    from tpuao_torch.utils.timing import cuda_time_ms
+
+    print(f"times, new paths [{card}]:")
+    ultra = AmbientOcclusionEngine(cam, preset("ULTRA"))
+    ms = {}
+    ms["ULTRA 1080p, 1 frame per call"] = cuda_time_ms(
+        lambda: ultra.render(z4[:1], normals=n4[:1]))
+    ms["ULTRA 1080p, 4 frames per call (per frame)"] = cuda_time_ms(
+        lambda: ultra.render(z4, normals=n4)) / 4
+    ms["ULTRA 4K (2160x3840)"] = cuda_time_ms(
+        lambda: ultra.render(d4k, normals=n4k))
+    m = relative_motion(views[0], views[1])
+    tp = TemporalParams()
+    for rl in (0, 1):
+        prev_d = (dz[0] if rl == 0 else dz[0][::2, ::2]).contiguous()
+        st = (torch.full_like(prev_d, 0.9), prev_d)
+        for name in ("HIGH", "ULTRA"):
+            nrm = dn[1] if name == "ULTRA" else None
+            ms[f"temporal {name} 1080p moving, resolve_level={rl}"] = \
+                cuda_time_ms(lambda st=st, rl=rl, name=name, nrm=nrm:
+                             render_frame_temporal(
+                                 dz[1], st, cam, preset(name), tp, motion=m,
+                                 normals=nrm, resolve_level=rl))
+    for k, v in ms.items():
+        print(f"  {k}: {v:.4f} ms/frame [{card}]", flush=True)
+    par = AOParams(use_normals=True)
+
+    def normals_levels(fn):  # one ULTRA frame's four renders
+        for l in range(1, 5):
+            fn(pyr[l], l, wp, cam, par, slopes_ds=spyr[l])
+
+    def coords(x, di, dj):  # (ip, jp) displaced by (di, dj) texels
+        h, w = x.shape
+        ii = torch.arange(h, dtype=torch.float32, device=x.device)[:, None]
+        jj = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
+        return ((ii + di).expand(h, w).contiguous(),
+                (jj + dj).expand(h, w).contiguous())
+
+    ip, jp = coords(dz[0], 1.3, -2.7)
+    half = [x[::2, ::2].contiguous() for x in (dz[0], dz[1])]
+    iph, jph = coords(half[0], 0.6, -1.3)
+    big = [torch.rand(4320, 7680, device=dz[0].device) for _ in range(2)]
+    ipb, jpb = coords(big[0], 1.3, -2.7)
+    timed = {
+        "render_normals": (
+            lambda: normals_levels(K.render_ao_level_normals),
+            lambda: normals_levels(K.render_ao_level_normals_plain)),
+        "windowed": (
+            lambda: K.windowed_resolve(dz[0], dz[1], ip, jp, 4),
+            lambda: K.windowed_resolve_plain(dz[0], dz[1], ip, jp, 4)),
+        "windowed half-res (r=2)": (
+            lambda: K.windowed_resolve(half[0], half[1], iph, jph, 2),
+            lambda: K.windowed_resolve_plain(half[0], half[1], iph, jph, 2)),
+        "windowed 8K (4320x7680, r=4)": (
+            lambda: K.windowed_resolve(big[0], big[1], ipb, jpb, 4),
+            lambda: K.windowed_resolve_plain(big[0], big[1], ipb, jpb, 4)),
+    }
+    kms = {}
+    for name, (kern, plain) in timed.items():
+        kms[name] = (cuda_time_ms(kern), cuda_time_ms(plain))
+        print(f"  {name}: kernel {kms[name][0]:.4f} ms, plain "
+              f"{kms[name][1]:.4f} ms [{card}]", flush=True)
+    return kms
 
 
 def main() -> int:
@@ -180,8 +533,9 @@ def main() -> int:
     torch.cuda.synchronize()
     main_counts = K.launch_counts()
     print(f"  main path, batch (4, {h0}, {w0}) auto: launches {main_counts}")
-    want_counts = {"render_ao_level": 1, "blur_upsample_step": 1,
-                   "fused_render_upsample_step": 3}
+    want_counts = {"render_ao_level": 1, "render_ao_level_normals": 0,
+                   "blur_upsample_step": 1, "fused_render_upsample_step": 3,
+                   "windowed_resolve": 0}
     if main_counts != want_counts:
         raise RuntimeError(f"main path launches {main_counts} != "
                            f"{want_counts}")
@@ -190,8 +544,9 @@ def main() -> int:
     if K.launch_counts() != dict.fromkeys(want_counts, 0):
         raise RuntimeError(f"impl='jnp' launched {K.launch_counts()}")
     out_pallas = render_frame(batch, cam_hw, par, impl="pallas")
-    pallas_counts = {"render_ao_level": 4, "blur_upsample_step": 4,
-                     "fused_render_upsample_step": 0}
+    pallas_counts = {"render_ao_level": 4, "render_ao_level_normals": 0,
+                     "blur_upsample_step": 4, "fused_render_upsample_step": 0,
+                     "windowed_resolve": 0}
     if K.launch_counts() != pallas_counts:
         raise RuntimeError(f"impl='pallas' launched {K.launch_counts()}")
     if not bool(((out_auto >= 0) & (out_auto <= 1)).all()):
@@ -270,18 +625,42 @@ def main() -> int:
     print(f"  render at level 1 (544x960, the pallas path's largest): "
           f"kernel {l1[0]:.4f} ms, plain {l1[1]:.4f} ms [{card}]")
 
+    # 6-9: the engine and temporal paths and their kernels
+    from tpuao_torch.ops import render as R
+    from tpuao_torch.ops import temporal as T
+
+    pyr_n, spyr = phase_new_kernels(chk, dev, K, P, R, T, F, cam, h0, w0,
+                                    hp, wp)
+    z4, n4, d4k, n4k, ultra_counts = phase_engine(chk, dev, K, F, cam, h0,
+                                                  w0)
+    dz, dn, views, temporal_counts = phase_temporal(chk, dev, K, F, cam, h0,
+                                                    w0)
+    ms.update(phase_times_new(card, K, cam, wp, pyr_n, spyr, z4, n4, d4k,
+                              n4k, dz, dn, views))
+
+    # each kernel's launches come from its own path's main run: the depth-
+    # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
+    # HIGH sequence at resolve_level 0 (phase 8)
     meta = {
         "render": ("render_ao_level", "tpuao_torch/csrc/render.cu",
-                   "tpuao/ops/pallas_kernels.py:660"),
+                   "tpuao/ops/pallas_kernels.py:660", main_counts),
+        "render_normals": ("render_ao_level_normals",
+                           "tpuao_torch/csrc/render.cu",
+                           "tpuao/ops/pallas_kernels.py:80", ultra_counts),
         "upsample": ("blur_upsample_step", "tpuao_torch/csrc/upsample.cu",
-                     "tpuao/ops/pallas_kernels.py:188"),
+                     "tpuao/ops/pallas_kernels.py:188", main_counts),
         "fused": ("fused_render_upsample_step", "tpuao_torch/csrc/fused.cu",
-                  "tpuao/ops/pallas_kernels.py:461"),
+                  "tpuao/ops/pallas_kernels.py:461", main_counts),
+        "windowed": ("windowed_resolve", "tpuao_torch/csrc/windowed.cu",
+                     "tpuao/ops/pallas_kernels.py:767", temporal_counts),
     }
     kernels = [{"name": fn, "route": "cuda", "source": src, "replaces": rep,
-                "launches": main_counts[fn], "max_abs_err": chk.worst[key],
+                "launches": run[fn], "max_abs_err": chk.worst[key],
                 "ms": ms[key][0], "plain_ms": ms[key][1]}
-               for key, (fn, src, rep) in meta.items()]
+               for key, (fn, src, rep, run) in meta.items()]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise RuntimeError(f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(_card())
     print(json.dumps({"ok": True, "device": {

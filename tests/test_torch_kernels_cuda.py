@@ -1,6 +1,7 @@
 """The CUDA kernels of tpuao_torch against their plain versions, on a GPU.
 
-The kernel-vs-plain cases of chip_smoke.py's phase 3 at small sizes.  Every
+The kernel-vs-plain cases of chip_smoke.py at small sizes, and the launch
+counts of the frame, normals and temporal paths.  Every
 test needs a CUDA device and skips without one (a CUDA kernel has no CPU
 mode; the plain versions are tested on the CPU against the JAX package in
 tests/test_torch_ops.py).  This file imports no JAX, so it also runs on a
@@ -13,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from tpuao_torch.models.pipeline import render_frame
+from tpuao_torch.models.pipeline import (TemporalAOEngine, render_frame,
+                                         render_frame_temporal)
+from tpuao_torch.models.presets import preset
 from tpuao_torch.ops import kernels as K
 from tpuao_torch.ops import prepare as P
-from tpuao_torch.params import AOParams, CameraParams
+from tpuao_torch.ops import render as R
+from tpuao_torch.ops import temporal as T
+from tpuao_torch.params import AOParams, CameraParams, TemporalParams
 from tpuao_torch.utils import fixtures as F
 from tpuao_torch.utils.timing import cuda_time_ms
 
@@ -116,13 +121,143 @@ def test_render_frame_impls_and_launch_counts(dev, hw, depth):
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="auto"), want)
     assert K.launch_counts() == {"render_ao_level": 1,
+                                 "render_ao_level_normals": 0,
                                  "blur_upsample_step": 1,
-                                 "fused_render_upsample_step": depth - 1}
+                                 "fused_render_upsample_step": depth - 1,
+                                 "windowed_resolve": 0}
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="pallas"), want)
     assert K.launch_counts() == {"render_ao_level": depth,
+                                 "render_ao_level_normals": 0,
                                  "blur_upsample_step": depth,
-                                 "fused_render_upsample_step": 0}
+                                 "fused_render_upsample_step": 0,
+                                 "windowed_resolve": 0}
+
+
+def normals_scene(dev, h=128, w=192, seed=3, batch=None):
+    seeds = [seed] if batch is None else range(seed, seed + batch)
+    zn = [F.spheres_on_plane(h, w, CAM, seed=s, with_normals=True)
+          for s in seeds]
+    z = np.stack([a for a, _ in zn]).astype(np.float32)
+    n = np.stack([b for _, b in zn]).astype(np.float32)
+    if batch is None:
+        z, n = z[0], n[0]
+    return (torch.as_tensor(z, device=dev), torch.as_tensor(n, device=dev))
+
+
+@pytest.mark.parametrize("exhaustive", [True, False])
+@pytest.mark.parametrize("abi", ["slopes", "normals"])
+def test_render_normals_levels(dev, abi, exhaustive):
+    z, n = normals_scene(dev, batch=2)
+    pyr = [lvl.contiguous() for lvl in P.build_pyramid(z, 4)]
+    if abi == "slopes":
+        kws = [{"slopes_ds": g} for g in R.slope_pyramid(
+            n, CAM.tan_half_fov_h, 128, 192, 4)]
+    else:
+        kws = [{"normals_ds": g} for g in R.normals_pyramid(n, 128, 192, 4)]
+    par = AOParams(use_normals=True, exhaustive=exhaustive, strength=1.4)
+    K.reset_launch_counts()
+    diff = 0.0
+    for l in range(1, 5):
+        got = K.render_ao_level(pyr[l], l, 192, CAM, par, **kws[l])
+        close(got, K.render_ao_level_normals_plain(pyr[l], l, 192, CAM, par,
+                                                   **kws[l]))
+        depth_only = K.render_ao_level_plain(pyr[l], l, 192, CAM, par)
+        diff = max(diff, float((got - depth_only).abs().max()))
+    assert diff > 1e-4  # the tangent term is live: depth-only differs
+    assert K.render_ao_level_normals.launches == 4
+    assert K.render_ao_level_normals.raw_launches == (4 if abi == "normals"
+                                                      else 0)
+    assert K.render_ao_level.launches == 0
+
+
+def test_render_normals_channel_last_and_flat_wall(dev):
+    z, n = normals_scene(dev, 64, 96)
+    ds = z[::2, ::2].contiguous()
+    nds = n[::2, ::2].contiguous()
+    par = AOParams(use_normals=True)
+    got = K.render_ao_level(ds, 1, 96, CAM, par, normals_ds=nds)
+    close(got, K.render_ao_level_normals_plain(ds, 1, 96, CAM, par,
+                                               normals_ds=nds))
+    flat = torch.zeros_like(nds)
+    flat[..., 2] = 1.0
+    close(K.render_ao_level(ds, 1, 96, CAM, par, normals_ds=flat),
+          K.render_ao_level(ds, 1, 96, CAM, AOParams()))
+
+
+def history(dev, h, w, r, seed):
+    rng = np.random.default_rng(seed)
+    ii, jj = np.mgrid[0:h, 0:w]
+    f = [rng.uniform(0.0, 1.0, (h, w)), rng.uniform(0.05, 1.0, (h, w)),
+         ii + rng.uniform(-(r + 2), r + 2, (h, w)),
+         jj + rng.uniform(-(r + 2), r + 2, (h, w))]
+    f[2][0, :4] = [-r - 1.5, r + 1.0, 0.0, r + 0.25]
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in f]
+
+
+@pytest.mark.parametrize("h,w,r", [(64, 96, 4), (37, 50, 2), (8, 8, 1)])
+def test_windowed_resolve(dev, h, w, r):
+    args = history(dev, h, w, r, 12)
+    K.reset_launch_counts()
+    got = K.windowed_resolve(*args, r)
+    assert K.windowed_resolve.launches == 1
+    for g, want in zip(got, K.windowed_resolve_plain(*args, r)):
+        close(g, want)
+    null = T.initial_state(h, w, device=dev)
+    got = K.windowed_resolve(*null, *args[2:], r)
+    want = K.windowed_resolve_plain(*null, *args[2:], r)
+    close(got[0], want[0])
+    assert float(((got[1] - want[1]) / want[1].clamp(min=1.0)).abs().max()
+                 ) <= 1e-6
+
+
+@pytest.mark.parametrize("resolve_level", [0, 1])
+def test_temporal_frames_and_launch_counts(dev, resolve_level):
+    cam = CAM
+    frames = [torch.as_tensor(F.spheres_on_plane(
+        128, 192, cam, seed=5, eye=(0.05 * t, 0.0, 0.04 * t)),
+        dtype=torch.float32, device=dev) for t in range(3)]
+    views = []
+    for t in range(3):
+        v = np.eye(4)
+        v[0, 3], v[2, 3] = -0.05 * t, -0.04 * t
+        views.append(v)
+    engines = {impl: TemporalAOEngine(cam, preset("HIGH"), impl=impl,
+                                      resolve_level=resolve_level)
+               for impl in ("auto", "jnp")}
+    for t in range(3):
+        want = engines["jnp"].render(frames[t], view=views[t])
+        K.reset_launch_counts()
+        got = engines["auto"].render(frames[t], view=views[t])
+        close(got, want)
+        want_counts = ({"render_ao_level": 1, "blur_upsample_step": 1,
+                        "fused_render_upsample_step": 3}
+                       if resolve_level == 0 else
+                       {"render_ao_level": 2, "blur_upsample_step": 2,
+                        "fused_render_upsample_step": 2})
+        want_counts.update(render_ao_level_normals=0,
+                           windowed_resolve=int(t > 0))
+        assert K.launch_counts() == want_counts
+
+
+def test_ultra_temporal_and_max_displacement_none(dev):
+    z, n = normals_scene(dev, 128, 192)
+    for rl in (0, 1):
+        got, want = (render_frame_temporal(
+            z, None, CAM, preset("ULTRA"), TemporalParams(),
+            motion=np.eye(4), normals=n, impl=impl, resolve_level=rl)[0]
+            for impl in ("auto", "jnp"))
+        close(got, want)
+    tp = TemporalParams(max_displacement=None)
+    prev = (torch.rand(128, 192, device=dev), z.clone())
+    m = np.eye(4)
+    m[0, 3] = 0.3
+    K.reset_launch_counts()
+    a, _ = render_frame_temporal(z, prev, CAM, AOParams(), tp, motion=m)
+    assert K.windowed_resolve.launches == 0  # the gather is plain torch
+    b, _ = render_frame_temporal(z, prev, CAM, AOParams(), tp, motion=m,
+                                 impl="jnp")
+    close(a, b)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -137,6 +272,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         K.fused_render_upsample_step(z[:32, :48].contiguous(),
                                      torch.ones(32, 48), z, 1, 96, CAM,
                                      AOParams())
+    with pytest.raises(ValueError, match="cuda|cpu|expected"):
+        K.render_ao_level(z, 1, 96, CAM, AOParams(use_normals=True),
+                          slopes_ds=(torch.zeros(64, 96),) * 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.windowed_resolve(z[:, ::2], z[:, ::2], z[:, ::2], z[:, ::2], 2)
+    with pytest.raises(ValueError, match="device"):
+        render_frame(z, CAM, AOParams(use_normals=True),
+                     normals=torch.zeros(64, 96, 3))
 
 
 def test_timing_reads_the_device(dev):

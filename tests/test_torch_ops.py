@@ -191,18 +191,6 @@ def test_fully_occluded_pixel_small_strength():
     np.testing.assert_allclose(got, pk, atol=1e-6)
 
 
-def test_render_normals_not_ported():
-    z = t32(np.full((16, 16), 0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.render_ao_level(z, 1, 32, CameraParams(),
-                          AOParams(use_normals=True),
-                          normals_ds=torch.zeros(16, 16, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.render_ao_level(z, 1, 32, CameraParams(),
-                          AOParams(use_normals=True),
-                          slopes_ds=(torch.zeros(16, 16),) * 2)
-
-
 # ---------------------------------------------------------------------------
 # upsample: plain version against the Pallas kernel and the golden
 # ---------------------------------------------------------------------------

@@ -214,6 +214,8 @@ def test_import_loads_no_jax():
         "import tpuao_torch, tpuao_torch.models.pipeline\n"
         "import tpuao_torch.ops.kernels, tpuao_torch.ops._build\n"
         "import tpuao_torch.utils.fixtures, tpuao_torch.utils.timing\n"
+        "import tpuao_torch.ops.temporal, tpuao_torch.models.presets\n"
+        "import tpuao_torch.utils.camera\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpuao'))\n"

@@ -177,13 +177,37 @@ def test_debug_outputs():
     assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
 
 
-def test_bad_impl_and_normals_raise():
+def test_debug_outputs_without_blur_hold_every_level(monkeypatch):
+    z, cam, jcam, _ = scene(64, 128)
+    par = dict(enable_blur=False)
+    out, dbg = render_frame(z, cam, AOParams(**par), debug_outputs=True)
+    jout, jdbg = JPL.render_frame(z, jcam, JAOParams(**par),
+                                  debug_outputs=True, impl="jnp")
+    assert sorted(dbg["ao_levels"]) == sorted(jdbg["ao_levels"]) == [1, 2,
+                                                                      3, 4]
+    for l, ao in dbg["ao_levels"].items():
+        np.testing.assert_allclose(ao.numpy(), np.asarray(jdbg["ao_levels"][l]),
+                                   atol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=TOL)
+    # without debug_outputs only level 1, which the frame uses, renders
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    np.testing.assert_array_equal(
+        render_frame(z, cam, AOParams(**par)).numpy(), out.numpy())
+    assert calls == [1]
+
+
+def test_bad_impl_raises_and_normals_render():
     z, cam, _, _ = scene(64, 64)
     with pytest.raises(ValueError, match="impl"):
         render_frame(z, cam, AOParams(), impl="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(z, cam, AOParams(use_normals=True),
-                     normals=np.zeros((64, 64, 3), np.float32))
+    n = np.zeros((64, 64, 3), np.float32)
+    n[..., 2] = 1.0  # a camera-facing wall: no tangent offset
+    np.testing.assert_allclose(
+        render_frame(z, cam, AOParams(use_normals=True), normals=n).numpy(),
+        render_frame(z, cam, AOParams()).numpy(), atol=1e-7)
 
 
 def test_tensor_input_stays_on_its_device():

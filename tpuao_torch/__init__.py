@@ -1,9 +1,10 @@
 """tpuao_torch -- the PyTorch / CUDA port of tpuao for NVIDIA Hopper.
 
-The frame path of ``tpuao`` (depth -> linearise -> pyramid -> per-level AO
--> blur/upsample chain -> crop [-> composite -> quantise]) in PyTorch, with
-the JAX package's three Pallas kernels of that path written by hand in CUDA
-C++ for ``sm_90a`` (``tpuao_torch/csrc``).  It imports neither ``jax`` nor
+The frame path of ``tpuao`` (depth [+ normals] -> linearise -> pyramid ->
+per-level AO -> blur/upsample chain -> crop [-> composite -> quantise]),
+its engines and its temporal accumulation in PyTorch, with the JAX
+package's Pallas kernels of those paths written by hand in CUDA C++ for
+``sm_90a`` (``tpuao_torch/csrc``).  It imports neither ``jax`` nor
 ``tpuao``; ``tpuao`` stays the reference it is tested against::
 
     import torch
@@ -11,27 +12,26 @@ C++ for ``sm_90a`` (``tpuao_torch/csrc``).  It imports neither ``jax`` nor
     ao = render_frame(torch.as_tensor(depth, device="cuda"),
                       camera=CameraParams(depth_mode="linear"),
                       params=AOParams())
+
+    from tpuao_torch import TemporalAOEngine, preset
+    eng = TemporalAOEngine(camera, preset("ULTRA"))
+    out = eng.render(depth, normals=normals, view=view_matrix)
 """
 
+from tpuao_torch.models.pipeline import (  # noqa: F401
+    AmbientOcclusionEngine,
+    TemporalAOEngine,
+    render_frame,
+    render_frame_temporal,
+    render_sequence_temporal,
+)
+from tpuao_torch.models.presets import PRESETS, preset  # noqa: F401
 from tpuao_torch.params import (  # noqa: F401
     AOParams,
     CameraParams,
     PARAM_RANGES,
+    TemporalParams,
     build_pair_table,
 )
 
 __version__ = "0.1.0"
-
-
-def render_frame(depth, camera=None, params=None, normals=None, color=None,
-                 debug_outputs=False, impl="auto", out_dtype="float32",
-                 device=None):
-    """Functional entry point: full AO pipeline on one frame or a batch.
-
-    Same signature as ``tpuao_torch.models.pipeline.render_frame``.
-    """
-    from tpuao_torch.models.pipeline import render_frame as _rf
-
-    return _rf(depth, camera=camera, params=params, normals=normals,
-               color=color, debug_outputs=debug_outputs, impl=impl,
-               out_dtype=out_dtype, device=device)

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``tpuao_torch/csrc``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` -- no PyTorch
-headers, so a build takes seconds.  The build runs at first use (never at
+The sources are compiled by ``nvcc`` for ``sm_90a`` -- one ``nvcc`` per
+source, all started together -- and linked into one shared library with a
+plain C interface, loaded with ``ctypes``: no PyTorch headers, so a build
+takes seconds.  The build runs at first use (never at
 import), from the package's own sources, into ``tpuao_torch/_build/``; the
 library's name carries a hash of the sources and flags, so an edit is
 never served a stale build.  ``--use_fast_math`` is deliberately absent:
@@ -24,10 +25,10 @@ import tempfile
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("render.cu", "upsample.cu", "fused.cu")
+SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu")
 HEADERS = ("common.cuh", "chain_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -37,11 +38,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tpuao_render_ao_level": (
         _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _I, _P),
+    "tpuao_render_ao_level_normals": (
+        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _F, _F, _I, _I, _P),
     "tpuao_blur_upsample_step": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
     "tpuao_fused_render_upsample_step": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
         _F, _F, _F, _F, _F, _F, _I, _P),
+    "tpuao_windowed_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -75,23 +79,37 @@ def library_path() -> pathlib.Path:
 
 def build() -> pathlib.Path:
     """Compile the sources unless the current build exists; returns the
-    library path.  The compiler's output (with ``-Xptxas -v``: registers,
-    shared memory and spills per kernel) is kept beside it as ``.log``."""
+    library path.  Each source compiles to an object in its own ``nvcc``
+    process, all at once, then one ``nvcc -shared`` links them.  The
+    compilers' output (with ``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside the library as ``.log``."""
     nvcc = find_nvcc()
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                os.path.join(tmp, "lib.so"), *objs]
+        log = "".join(" ".join(c) + "\n" + out
+                      for c, out in zip(cmds, outs))
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [link]
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{log}")
+        os.replace(os.path.join(tmp, "lib.so"), lib)
     return lib
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
 
-* a wrapper (``render_ao_level``, ``blur_upsample_step``,
-  ``fused_render_upsample_step``): on a CPU tensor it runs the plain
-  version; on a CUDA tensor it launches the kernel (``csrc/``, built by
+* a wrapper (``render_ao_level``, ``render_ao_level_normals``,
+  ``blur_upsample_step``, ``fused_render_upsample_step``,
+  ``windowed_resolve``): on a CPU tensor it runs the plain version; on a
+  CUDA tensor it launches the kernel (``csrc/``, built by
   ``ops/_build.py`` at first use) or raises.  It never falls back;
 * a plain PyTorch version (``*_plain``), the CPU path and the reference the
   kernel is held against on the card;
@@ -12,7 +13,9 @@ Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
   adds one to where it launches its kernel and nowhere else.
 
 The wrappers take float32, C-contiguous tensors whose leading dimensions
-(a batch) agree; the batch becomes the kernels' ``blockIdx.z``.
+(a batch) agree; the batch becomes the kernels' ``blockIdx.z``.  The
+windowed resolve takes single (h, w) planes: the temporal path is one
+sequence per call.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from tpuao_torch.ops import render as R
+from tpuao_torch.ops import temporal as T
 from tpuao_torch.ops import upsample as U
 from tpuao_torch.params import (AOParams, sphere_radius_coef,
                                 upsample_constants)
@@ -108,30 +112,145 @@ render_ao_level_plain = R.render_ao_level
 
 def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
                     params, normals_ds=None, slopes_ds=None) -> torch.Tensor:
-    """AO of one (..., h, w) pyramid level; kernel ``csrc/render.cu``."""
-    R.check_depth_only(params, normals_ds, slopes_ds)
+    """AO of one (..., h, w) pyramid level; kernel ``csrc/render.cu``.
+    With ``params.use_normals`` and normals given, this is
+    ``render_ao_level_normals`` (its own kernel mode and launch count)."""
+    if params.use_normals and (normals_ds is not None
+                               or slopes_ds is not None):
+        return render_ao_level_normals(ds, level, full_width, camera, params,
+                                       normals_ds=normals_ds,
+                                       slopes_ds=slopes_ds)
     _check("ds", ds)
     if ds.device.type == "cpu":
         return render_ao_level_plain(ds, level, full_width, camera, params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
     h, w = ds.shape[-2:]
-    if h < 4 or w < 4:
-        raise ValueError(f"render kernel needs a level of at least 4x4, "
-                         f"got {(h, w)}")
+    _check_level(h, w)
     table = pair_table(bool(params.exhaustive))
-    inv_rc = 1.0 / sphere_radius_coef(level, full_width, camera.tan_half_fov_h,
-                                      params.screenspace_diameter)
     out = torch.empty_like(ds)
     _launch("tpuao_render_ao_level", ds.data_ptr(), out.data_ptr(),
             _batch(lead), h, w, table.ctypes.data, len(table),
             float(params.rejection_falloff), float(params.strength),
-            float(inv_rc), ds.device.index, _stream(ds.device))
+            _inv_rc(level, full_width, camera, params), ds.device.index,
+            _stream(ds.device))
     render_ao_level.launches += 1
     return out
 
 
 render_ao_level.launches = 0
+
+
+def _check_level(h: int, w: int) -> None:
+    if h < 4 or w < 4:
+        raise ValueError(f"render kernel needs a level of at least 4x4, "
+                         f"got {(h, w)}")
+
+
+def _inv_rc(level: int, full_width: int, camera, params) -> float:
+    return 1.0 / sphere_radius_coef(level, full_width, camera.tan_half_fov_h,
+                                    params.screenspace_diameter)
+
+
+# ---------------------------------------------------------------------------
+# 1n. Per-level AO estimator with normals (replaces the use_normals branch
+#     of pallas_kernels.render_ao_level)
+# ---------------------------------------------------------------------------
+
+
+def render_ao_level_normals_plain(ds, level: int, full_width: int, camera,
+                                  params, normals_ds=None, slopes_ds=None):
+    """The normals path of the plain estimator (``ops/render.py``)."""
+    return R.render_ao_level(ds, level, full_width, camera, params,
+                             normals_ds=normals_ds, slopes_ds=slopes_ds)
+
+
+def tangent_m2(params, level: int, full_width: int, camera) -> np.ndarray:
+    """The kernel's per-pair soft-clamp scale ``(0.5 * radius_coef * t)^2``
+    at ``level``, computed in float64 and rounded once, as the plain
+    version rounds it."""
+    return _m2_table(bool(params.exhaustive), float(sphere_radius_coef(
+        level, full_width, camera.tan_half_fov_h,
+        params.screenspace_diameter)))
+
+
+@functools.lru_cache(maxsize=64)
+def _m2_table(exhaustive: bool, radius_coef: float) -> np.ndarray:
+    # cached: rebuilding the table on every call costs more host time than
+    # the launch itself
+    pairs = R._pair_constants(AOParams(exhaustive=exhaustive))
+    m2 = np.array([(0.5 * radius_coef * t) ** 2 for _, _, t, _ in pairs],
+                  np.float32)
+    m2.setflags(write=False)  # one array serves every caller
+    return m2
+
+
+def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
+                            camera, params, normals_ds=None,
+                            slopes_ds=None) -> torch.Tensor:
+    """AO of one (..., h, w) level with the tangent-plane offset; kernel
+    ``csrc/render.cu`` in one of two modes:
+
+    * ``slopes_ds=(g_x, g_y)``, each (..., h, w), at level-0 texel scale
+      (``ops/render.slope_pyramid``): the ``impl="auto"`` path;
+    * ``normals_ds``, the level's raw normals, (..., 3, h, w) channel-first
+      or (..., h, w, 3): the ``impl="pallas"`` path (a channel-last tensor
+      is copied to channel-first first).
+
+    ``launches`` counts both modes, ``raw_launches`` the raw-normals one.
+    """
+    if (normals_ds is None) == (slopes_ds is None):
+        raise ValueError("pass exactly one of normals_ds and slopes_ds")
+    if not params.use_normals:
+        raise ValueError("render_ao_level_normals needs params.use_normals")
+    _check("ds", ds)
+    if ds.device.type == "cpu":
+        return render_ao_level_normals_plain(
+            ds, level, full_width, camera, params, normals_ds=normals_ds,
+            slopes_ds=slopes_ds)
+    lead = tuple(ds.shape[:-2])
+    _check_kernel_input("ds", ds, ds.device, lead)
+    h, w = ds.shape[-2:]
+    _check_level(h, w)
+    if slopes_ds is not None:
+        a, b = slopes_ds
+        for name, x in (("g_x", a), ("g_y", b)):
+            _check(name, x)
+            _check_kernel_input(name, x, ds.device, lead)
+            if tuple(x.shape[-2:]) != (h, w):
+                raise ValueError(f"{name}: spatial shape "
+                                 f"{tuple(x.shape[-2:])}, expected {(h, w)}")
+        mode, scale = 1, float(1 << level)
+    else:
+        _check("normals_ds", normals_ds)
+        a = R.normals_channel_first(normals_ds)
+        if a.device != ds.device:
+            raise ValueError(f"normals_ds: on {a.device}, expected "
+                             f"{ds.device}")
+        a = a.contiguous()
+        if tuple(a.shape) != lead + (3, h, w):
+            raise ValueError(f"normals_ds: shape {tuple(a.shape)} "
+                             f"(channel-first), expected {lead + (3, h, w)}")
+        b = None
+        mode = 2
+        scale = R.texel_scale(level, full_width, camera.tan_half_fov_h)
+    table = pair_table(bool(params.exhaustive))
+    m2 = tangent_m2(params, level, full_width, camera)
+    out = torch.empty_like(ds)
+    _launch("tpuao_render_ao_level_normals", ds.data_ptr(), a.data_ptr(),
+            _ptr(b), out.data_ptr(), _batch(lead), h, w, table.ctypes.data,
+            m2.ctypes.data, len(table), float(params.rejection_falloff),
+            float(params.strength), _inv_rc(level, full_width, camera,
+                                            params), float(scale), mode,
+            ds.device.index, _stream(ds.device))
+    render_ao_level_normals.launches += 1
+    if mode == 2:
+        render_ao_level_normals.raw_launches += 1
+    return out
+
+
+render_ao_level_normals.launches = 0
+render_ao_level_normals.raw_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +326,6 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
     combined AO from below ``c1``, and run the chain step up to ``hi_d``
     (..., 2lh, 2lw); the level's AO never reaches device memory.  Kernel
     ``csrc/fused.cu``."""
-    R.check_depth_only(params)
     for name, x in (("ds", ds), ("c1", c1), ("hi_d", hi_d)):
         _check(name, x)
     lh, lw = ds.shape[-2:]
@@ -228,8 +346,7 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
         raise ValueError(f"fused kernel needs a level of at least 4x4, "
                          f"got {(lh, lw)}")
     table = pair_table(bool(params.exhaustive))
-    inv_rc = 1.0 / sphere_radius_coef(level, full_width, camera.tan_half_fov_h,
-                                      params.screenspace_diameter)
+    inv_rc = _inv_rc(level, full_width, camera, params)
     _, k_blur, k_up, nfs = upsample_constants(params, full_width, lw)
     out = torch.empty(*lead, h0, w0, dtype=torch.float32, device=ds.device)
     _launch("tpuao_fused_render_upsample_step", ds.data_ptr(), c1.data_ptr(),
@@ -243,12 +360,54 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
 
 fused_render_upsample_step.launches = 0
 
-KERNELS = (render_ao_level, blur_upsample_step, fused_render_upsample_step)
+
+# ---------------------------------------------------------------------------
+# 4. Windowed history resample (replaces pallas_kernels.windowed_resolve)
+# ---------------------------------------------------------------------------
+
+windowed_resolve_plain = T._bilinear_windowed2
+
+
+def windowed_resolve(prev_ao: torch.Tensor, prev_d: torch.Tensor,
+                     ip: torch.Tensor, jp: torch.Tensor,
+                     r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear sample of both (h, w) history fields at (ip, jp) within a
+    window of radius ``r``; returns ``(hist_ao, hist_depth)``.  Kernel
+    ``csrc/windowed.cu``."""
+    named = {"prev_ao": prev_ao, "prev_d": prev_d, "ip": ip, "jp": jp}
+    for name, x in named.items():
+        _check(name, x)
+        if x.ndim != 2 or tuple(x.shape) != tuple(prev_ao.shape):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected one "
+                             f"(h, w) plane {tuple(prev_ao.shape)}")
+    r = int(r)
+    if r < 1:
+        raise ValueError(f"window radius must be >= 1, got {r}")
+    if prev_ao.device.type == "cpu":
+        return windowed_resolve_plain(prev_ao, prev_d, ip, jp, r)
+    for name, x in named.items():
+        _check_kernel_input(name, x, prev_ao.device, ())
+    h, w = prev_ao.shape
+    hist_ao = torch.empty_like(prev_ao)
+    hist_d = torch.empty_like(prev_ao)
+    _launch("tpuao_windowed_resolve", prev_ao.data_ptr(), prev_d.data_ptr(),
+            ip.data_ptr(), jp.data_ptr(), hist_ao.data_ptr(),
+            hist_d.data_ptr(), h, w, r, prev_ao.device.index,
+            _stream(prev_ao.device))
+    windowed_resolve.launches += 1
+    return hist_ao, hist_d
+
+
+windowed_resolve.launches = 0
+
+KERNELS = (render_ao_level, render_ao_level_normals, blur_upsample_step,
+           fused_render_upsample_step, windowed_resolve)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    render_ao_level_normals.raw_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -98,6 +98,13 @@ PARAM_RANGES: dict[str, tuple[float, float]] = {
     "strength": (0.1, 10.0),
 }
 
+# Temporal accumulation: history_weight < 1 keeps the accumulator a strict
+# contraction; depth_tolerance > 0 keeps the confidence well defined.
+TEMPORAL_PARAM_RANGES: dict[str, tuple[float, float]] = {
+    "history_weight": (0.0, 0.98),
+    "depth_tolerance": (0.005, 1.0),
+}
+
 
 def _is_number(v) -> bool:
     return isinstance(v, (int, float, np.floating, np.integer))
@@ -131,6 +138,42 @@ class AOParams:
         return self
 
     def replace(self, **changes) -> "AOParams":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalParams:
+    """Temporal-accumulation tunables (``ops/temporal.py``).
+
+    * ``history_weight``: largest share of history kept per frame;
+    * ``depth_tolerance``: relative reprojected-depth mismatch at which
+      history confidence reaches 0;
+    * ``neighborhood_clamp``: clamp history to the 3x3 min/max of the
+      current AO (anti-ghosting);
+    * ``max_displacement``: drop history that reprojects more than this
+      many pixels away (the windowed resolve's radius); ``None`` samples
+      unbounded motion with a plain gather.
+    """
+
+    history_weight: float = 0.9
+    depth_tolerance: float = 0.1
+    neighborhood_clamp: bool = True
+    max_displacement: int | None = 4
+
+    def validate(self) -> "TemporalParams":
+        for name, (lo, hi) in TEMPORAL_PARAM_RANGES.items():
+            v = getattr(self, name)
+            if _is_number(v) and not (lo <= float(v) <= hi):
+                raise ValueError(f"TemporalParams.{name}={v} outside range "
+                                 f"[{lo}, {hi}]")
+        r = self.max_displacement
+        if r is not None and not (isinstance(r, int) and 1 <= r <= 64):
+            raise ValueError(
+                f"TemporalParams.max_displacement={r!r} must be None or an "
+                "int in [1, 64] (window taps grow as (2R+2)^2)")
+        return self
+
+    def replace(self, **changes) -> "TemporalParams":
         return dataclasses.replace(self, **changes)
 
 
@@ -170,6 +213,101 @@ class CameraParams:
     def replace(self, **changes) -> "CameraParams":
         return dataclasses.replace(self, **changes)
 
+    @classmethod
+    def from_projection(cls, proj, convention: str = "unity"
+                        ) -> "CameraParams":
+        """Camera from a 4x4 projection matrix (column vectors,
+        ``clip = P @ view``), as ``tpuao``'s ``CameraParams.from_projection``.
+
+        ``convention="unity"``: D3D-style clip space, buffer depth =
+        clip.z/clip.w in [0, 1], reversed-Z or forward-Z (detected from the
+        matrix); ``"gl"``: OpenGL clip space, NDC z in [-1, 1] mapped to
+        0.5*ndc + 0.5, forward-Z.  Both view-space handednesses (the sign
+        of ``P[3,2]``) and a transposed matrix are accepted; the
+        orientation with a unit perspective-divide entry ``|P[3,2]| == 1``
+        is taken first.  The result is cross-validated against the
+        linearizer ``1/(zmagic*d + 1)`` on sampled eye depths, so a depth
+        map the pipeline cannot represent (infinite far, oblique near
+        clip) raises instead of rendering wrong AO.
+        """
+        p = np.asarray(proj, dtype=np.float64)
+        if p.size != 16:
+            raise ValueError(
+                f"projection must be 4x4 (16 values), got {p.shape}")
+        p = p.reshape(4, 4)
+        if convention not in ("unity", "gl"):
+            raise ValueError(
+                f"convention={convention!r} must be 'unity' or 'gl'")
+        cand = [p, p.T]
+        unit = [abs(abs(m[3, 2]) - 1.0) < 1e-9 for m in cand]
+        if unit[0] != unit[1]:
+            cand = [cand[0] if unit[0] else cand[1]]
+        try:
+            return cls._from_projection_oriented(cand[0], convention)
+        except ValueError as first:
+            if len(cand) == 1:
+                raise
+            try:
+                return cls._from_projection_oriented(cand[1], convention)
+            except ValueError:
+                raise first from None
+
+    @classmethod
+    def _from_projection_oriented(cls, p, convention: str) -> "CameraParams":
+        if abs(p[3, 2]) < 1e-12:
+            raise ValueError(
+                "not a perspective projection: P[3,2] == 0 (no 1/z divide); "
+                "orthographic cameras have no AO depth scale")
+        if p[0, 0] <= 0:
+            raise ValueError(f"P[0,0]={p[0, 0]} must be > 0 (cot of half "
+                             "the horizontal fov)")
+        tanh = 1.0 / p[0, 0]
+        a, b = p[2, 2], p[2, 3]
+        c, e = p[3, 2], p[3, 3]
+        # view-space z of a point at eye distance ze: -ze right-handed
+        # (w row negative), +ze left-handed (w row positive)
+        zsign = -1.0 if c < 0 else 1.0
+
+        def ndc(d):  # buffer depth -> clip-space z/w
+            return 2.0 * d - 1.0 if convention == "gl" else d
+
+        def ze_of(d):  # exact preimage of buffer depth d
+            nd = ndc(d)
+            den = zsign * (a - nd * c)
+            if abs(den) < 1e-300:
+                return math.inf
+            return (nd * e - b) / den
+
+        z_at_0, z_at_1 = ze_of(0.0), ze_of(1.0)
+        if not (math.isfinite(z_at_0) and math.isfinite(z_at_1)):
+            raise ValueError(
+                "projection has an infinite clip plane (e.g. infinite-far "
+                "reversed-Z); the AO linearizer needs finite near/far -- "
+                "rebuild the matrix with a finite far")
+        reversed_z = bool(z_at_1 < z_at_0)
+        near, far = sorted((float(z_at_0), float(z_at_1)))
+        cam = cls(near=near, far=far, tan_half_fov_h=float(tanh),
+                  reversed_z=reversed_z, depth_mode="hardware").validate()
+        # the matrix's own depth map through the linearizer must give back
+        # z_eye/far, monotonically
+        zmagic = (far - near) / near
+        zs = np.linspace(near, far, 33)
+        d = (a * (zsign * zs) + b) / (c * (zsign * zs) + e)
+        d_buf = 0.5 * d + 0.5 if convention == "gl" else d
+        d_lin = d_buf if reversed_z else 1.0 - d_buf
+        recon = 1.0 / (zmagic * d_lin + 1.0)
+        err = np.abs(recon - zs / far).max()
+        if err > 1e-9 * (1.0 + far / near):
+            raise ValueError(
+                "projection depth map is not the standard perspective form "
+                f"the AO linearizer assumes (max dev {err:.3e}); "
+                "oblique/sheared depth rows are not supported")
+        mono = np.diff(d_buf)
+        if not (np.all(mono < 0) if reversed_z else np.all(mono > 0)):
+            raise ValueError("projection depth map is not monotonic over "
+                             "[near, far]")
+        return cam
+
 
 # ---------------------------------------------------------------------------
 # Config persistence
@@ -177,11 +315,13 @@ class CameraParams:
 
 
 def params_to_dict(params) -> dict:
-    """AOParams/CameraParams -> plain-value dict (JSON-ready)."""
+    """AOParams/CameraParams/TemporalParams -> plain-value dict
+    (JSON-ready)."""
     out = {}
     for f in dataclasses.fields(params):
         v = getattr(params, f.name)
-        out[f.name] = v if isinstance(v, (bool, int, str)) else float(v)
+        out[f.name] = (v if v is None or isinstance(v, (bool, int, str))
+                       else float(v))
     return out
 
 
@@ -194,6 +334,16 @@ def params_from_dict(cls, d: dict):
     return cls(**d).validate()
 
 
+def save_config(path: str, params, camera) -> str:
+    """Write the ``{"ao": ..., "camera": ...}`` JSON config that
+    ``load_config`` (and ``tpuao.params.load_config``) reads; returns
+    ``path``."""
+    with open(path, "w") as f:
+        json.dump({"ao": params_to_dict(params),
+                   "camera": params_to_dict(camera)}, f, indent=2)
+    return path
+
+
 def load_config(path: str) -> tuple[AOParams, CameraParams]:
     """Read an ``{"ao": ..., "camera": ...}`` JSON config, validated."""
     with open(path) as f:
@@ -202,16 +352,21 @@ def load_config(path: str) -> tuple[AOParams, CameraParams]:
             params_from_dict(CameraParams, d["camera"]))
 
 
-def from_tpuao(ao_dict: dict, camera_dict: dict
-               ) -> tuple[AOParams, CameraParams]:
+def from_tpuao(ao_dict: dict, camera_dict: dict, temporal_dict=None):
     """Build the port's parameters from the JAX package's state.
 
-    Takes what ``tpuao.params.params_to_dict`` returns for a JAX
-    ``AOParams`` and ``CameraParams`` (plain floats, bools and strings) --
-    the tunables and camera are all the state this system carries.
+    Takes the fields of a JAX ``AOParams`` and ``CameraParams`` as plain
+    floats, bools and strings (what ``tpuao.params.params_to_dict``
+    returns) and returns ``(AOParams, CameraParams)``; with
+    ``temporal_dict``, the fields of a ``TemporalParams``, it returns
+    ``(AOParams, CameraParams, TemporalParams)``.  The tunables, the camera
+    and the temporal tunables are all the state this system carries.
     """
-    return (params_from_dict(AOParams, dict(ao_dict)),
-            params_from_dict(CameraParams, dict(camera_dict)))
+    out = (params_from_dict(AOParams, dict(ao_dict)),
+           params_from_dict(CameraParams, dict(camera_dict)))
+    if temporal_dict is None:
+        return out
+    return out + (params_from_dict(TemporalParams, dict(temporal_dict)),)
 
 
 # ---------------------------------------------------------------------------
