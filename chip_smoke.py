@@ -30,7 +30,20 @@ Phases, one or more lines each:
               vectors and unbounded motion, against impl="jnp", with the
               launch counts of every frame asserted;
 9. times   -- ms per frame of the ULTRA, 4K-normals and temporal paths,
-              and the new kernels beside their plain versions.
+              and the new kernels beside their plain versions;
+10. variants -- the two kernels no impl reaches, through their entry
+              points: render_ao_level_dma at level 1 of 1080p, 4K and 8K,
+              fused_render_upsample_step_zc at the 1080p steps 2->1 and
+              1->0 and the 4K step 1->0, each equal to its sibling kernel
+              bit for bit, against its plain version, row_tile invariant,
+              timed beside both;
+11. serving -- tpuao_torch.serving on the card (batch_size=4, warmed for
+              1080p normals/temporal/temporal_l1) answering direct,
+              batched, ULTRA, png, dolly-session (resolve_level 0 and 1),
+              mv-session and DELETE requests through the port's client,
+              each response equal to the direct render on the card, with
+              the launch counts of the run, /stats latency and one
+              request's decode/render/encode split.
 
 Then a JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
@@ -50,7 +63,10 @@ RTOL_NULL_DEPTH = 1e-6  # history depth of a null history (1e6 in float32)
 SEED = 7
 COUNT_KEYS = ("render_ao_level", "render_ao_level_normals",
               "blur_upsample_step", "fused_render_upsample_step",
-              "windowed_resolve")
+              "windowed_resolve", "render_ao_level_dma",
+              "fused_render_upsample_step_zc")
+TOL_SIBLING = 0.0  # the two variants against their sibling kernels: same
+                   # arithmetic on the same tap values, so the same bits
 
 
 def _card() -> str:
@@ -417,6 +433,256 @@ def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
     return kms
 
 
+def level_pyramid(dev, P, F, cam, h0, w0):
+    """Levels 0-4 of a sphere scene's linear depth, padded to 64."""
+    import torch
+
+    from tpuao_torch.params import padded_shape
+
+    hp, wp = padded_shape(h0, w0)
+    z = torch.as_tensor(F.spheres_on_plane(h0, w0, cam, seed=SEED),
+                        dtype=torch.float32, device=dev)
+    zp = torch.nn.functional.pad(z[None], (0, wp - w0, 0, hp - h0),
+                                 mode="replicate")[0]
+    return [lvl.contiguous()
+            for lvl in P.build_pyramid(P.linearize_depth(zp, cam), 4)], wp
+
+
+def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
+    """10. The two kernels without an impl of their own, through their
+    entry points: the double-buffered render at level 1 of 1080p, 4K and
+    8K, the zero-copy step at the 1080p steps 2->1 and 1->0 and the 4K
+    step 1->0.  Held against their sibling kernels (bit for bit) and
+    their plain versions; returns the entry-point run's launch counts and
+    the times."""
+    import torch
+
+    from tpuao_torch.params import AOParams
+    from tpuao_torch.utils.timing import cuda_time_ms
+
+    print(f"variants (render_ao_level_dma, fused_render_upsample_step_zc) "
+          f"[{card}]:")
+    par = AOParams()
+    pyr4k, wp4k = level_pyramid(dev, P, F, cam, 2160, 3840)
+    pyr8k, wp8k = level_pyramid(dev, P, F, cam, 4320, 7680)
+    # the 4K chain up to level 1 (the combined AO the step 1->0 takes)
+    c = K.blur_upsample_step(K.render_ao_level(pyr4k[4], 4, wp4k, cam, par),
+                             pyr4k[4], pyr4k[3], par, wp4k)
+    for l in (3, 2):
+        c = K.fused_render_upsample_step(pyr4k[l], c, pyr4k[l - 1], l, wp4k,
+                                         cam, par)
+    dma_in = {"1080p": (pyr1080[1], 1920), "4K": (pyr4k[1], wp4k),
+              "8K": (pyr8k[1], wp8k)}
+    zc_in = {"1080p 2->1": (pyr1080[2], c_in1080[2], pyr1080[1], 2, 1920,
+                            None),
+             "1080p 1->0": (pyr1080[1], c_in1080[1], pyr1080[0], 1, 1920,
+                            (1080, 1920)),
+             "4K 1->0": (pyr4k[1], c, pyr4k[0], 1, wp4k, (2160, 3840))}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    dma_out = {k: K.render_ao_level_dma(d, 1, fw, cam, par)
+               for k, (d, fw) in dma_in.items()}
+    zc_out = {k: K.fused_render_upsample_step_zc(ds, c1, hi, l, fw, cam, par,
+                                                 crop_hw=crop)
+              for k, (ds, c1, hi, l, fw, crop) in zc_in.items()}
+    torch.cuda.synchronize()
+    run = K.launch_counts()
+    print(f"  entry-point run: launches {run}")
+    expect_counts(K, "variants", counts(render_ao_level_dma=3,
+                                        fused_render_upsample_step_zc=3))
+    ms = {}
+    for k, (d, fw) in dma_in.items():
+        label = f"dma {k} level 1 {tuple(d.shape)}"
+        chk.close("", f"{label} vs render kernel", dma_out[k],
+                  K.render_ao_level(d, 1, fw, cam, par), tol=TOL_SIBLING)
+        chk.close("dma", f"{label} vs plain", dma_out[k],
+                  K.render_ao_level_plain(d, 1, fw, cam, par))
+        for rt in (16, 37, 4096):
+            chk.close("", f"{label} row_tile={rt} vs row_tile=128",
+                      K.render_ao_level_dma(d, 1, fw, cam, par, row_tile=rt),
+                      dma_out[k], tol=0.0, quiet=True)
+        ms[k] = tuple(cuda_time_ms(f) for f in (
+            lambda: K.render_ao_level_dma(d, 1, fw, cam, par),
+            lambda: K.render_ao_level(d, 1, fw, cam, par),
+            lambda: K.render_ao_level_plain(d, 1, fw, cam, par)))
+        print(f"  {label}: dma {ms[k][0]:.4f} ms, render kernel "
+              f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
+              flush=True)
+    for k, (ds, c1, hi, l, fw, crop) in zc_in.items():
+        label = f"zc {k} {tuple(ds.shape)} crop={crop}"
+        args = (ds, c1, hi, l, fw, cam, par)
+        chk.close("", f"{label} vs fused kernel", zc_out[k],
+                  K.fused_render_upsample_step(*args, crop_hw=crop),
+                  tol=TOL_SIBLING)
+        chk.close("zc", f"{label} vs plain", zc_out[k],
+                  K.fused_render_upsample_step_plain(*args, crop_hw=crop))
+        for rt in (40, 100, 4096):
+            chk.close("", f"{label} row_tile={rt} vs row_tile=64",
+                      K.fused_render_upsample_step_zc(*args, row_tile=rt,
+                                                      crop_hw=crop),
+                      zc_out[k], tol=0.0, quiet=True)
+        ms[k] = tuple(cuda_time_ms(f) for f in (
+            lambda: K.fused_render_upsample_step_zc(*args, crop_hw=crop),
+            lambda: K.fused_render_upsample_step(*args, crop_hw=crop),
+            lambda: K.fused_render_upsample_step_plain(*args,
+                                                       crop_hw=crop)))
+        print(f"  {label}: zc {ms[k][0]:.4f} ms, fused kernel "
+              f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
+              flush=True)
+    print("  row_tile invariance: 3 settings each, exact")
+    del pyr4k, pyr8k, c, dma_in, zc_in, dma_out, zc_out
+    torch.cuda.empty_cache()
+    return run, {"dma": (ms["1080p"][0], ms["1080p"][2]),
+                 "zc": (ms["1080p 1->0"][0], ms["1080p 1->0"][2])}
+
+
+def phase_serving(chk, dev, K, F, cam, card):
+    """11. The port's HTTP server on the card, in-process on 127.0.0.1:0,
+    batch_size=4, warmed for 1080p normals/temporal/temporal_l1, driven
+    through the port's client.  Every response is held against the same
+    frame rendered directly on the card (exact: same kernels, same
+    inputs, float32 PFM round-trips exactly); the launch counts around
+    the requests show the kernels ran.  Returns the serving run's counts."""
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpuao_torch.client import AOClient
+    from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
+                                             TemporalAOEngine, render_frame)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import AOParams
+    from tpuao_torch.serving import make_server, warm_server
+    from tpuao_torch.utils.batching import to_host
+    from tpuao_torch.utils.frameio import dumps_pfm, loads_pfm_multi
+    from tpuao_torch.utils.io import encode_ao_png
+
+    print(f"serving (tpuao_torch.serving on cuda, batch_size=4) [{card}]:")
+    h0, w0 = 1080, 1920
+    srv = make_server(0, batch_size=4, device="cuda")
+    t0 = time.perf_counter()
+    warmed = warm_server(srv, (h0, w0), ["normals", "temporal",
+                                         "temporal_l1"])
+    print(f"  warm_server: {len(warmed)} paths in "
+          f"{time.perf_counter() - t0:.2f} s: {', '.join(warmed)}",
+          flush=True)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = AOClient(f"http://127.0.0.1:{srv.server_address[1]}",
+                          retries=0)
+        client.wait_ready(timeout=30.0, interval=0.1)
+        scenes = [F.spheres_on_plane(h0, w0, cam, seed=s, with_normals=True)
+                  for s in range(4)]
+        zs = [z.astype(np.float32) for z, _ in scenes]
+        nrm = scenes[0][1].astype(np.float32)
+        on = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        frames, views = dolly_frames(F, cam, h0, w0, 8)
+        mv = np.zeros((h0, w0, 2), np.float32)
+        mv[..., 1] = -1.5
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        # 4 stateless requests on the direct route, with tunables
+        tun = [{"strength": 1.0 + 0.5 * i, "rejection_falloff": 2.0 + i}
+               for i in range(4)]
+        direct = [client.render(z, **t) for z, t in zip(zs, tun)]
+        batched = client.render_many(zs, workers=4)  # 4 concurrent
+        ultra = client.render(zs[0], normals=nrm)
+        png = client.render(zs[1], out="png")
+        dolly = {}
+        for rl in (0, 1):
+            with client.session(f"dolly{rl}", resolve_level=rl) as ses:
+                dolly[rl] = [ses.render(z, view=v)
+                             for (z, _), v in zip(frames, views)]
+                if ses.last_frame_index != 7:
+                    raise RuntimeError(f"dolly rl={rl}: last frame index "
+                                       f"{ses.last_frame_index}")
+        ses = client.session("mv")
+        mv_out = [ses.render(z, mv=None if t == 0 else mv)
+                  for t, (z, _) in enumerate(frames[:3])]
+        if client.stats()["sessions"] != 1:
+            raise RuntimeError("the mv session is not in the table")
+        ses.close()  # DELETE /session/mv
+        torch.cuda.synchronize()
+        run = K.launch_counts()
+        print(f"  serving run (4 direct, 4 batched, 1 ULTRA, 1 png, 2x8 "
+              f"dolly, 3 mv, 1 DELETE): launches {run}", flush=True)
+        need = ("render_ao_level", "blur_upsample_step",
+                "fused_render_upsample_step", "render_ao_level_normals",
+                "windowed_resolve")
+        if any(run[k] < 1 for k in need):
+            raise RuntimeError(f"the serving path skipped a kernel: {run}")
+        stats = client.stats()
+        if (stats["sessions"], stats["errors"], stats["ok"]) != (0, 0, 29):
+            raise RuntimeError(f"server stats {stats}")
+        b = stats["batcher"]
+        if b["frames"] + b["padded"] != sum(int(r) * n for r, n in
+                                            b["rung_flushes"].items()):
+            raise RuntimeError(f"batcher stats {b}")
+        # every response against the direct render on the card
+        eng = AmbientOcclusionEngine(cam)
+        for i, (z, t) in enumerate(zip(zs, tun)):
+            want = render_frame(on(z), cam, AOParams(**t))
+            chk.close("", f"direct request {i} {t}", on(direct[i]), want,
+                      tol=0.0, quiet=i > 0)
+            chk.close("", f"batched request {i}", on(batched[i]),
+                      eng.render(on(z)), tol=0.0, quiet=i > 0)
+        want = AmbientOcclusionEngine(cam, preset("ULTRA")).render(
+            on(zs[0]), normals=on(nrm))
+        chk.close("", "ULTRA normals request", on(ultra), want, tol=0.0)
+        if png != encode_ao_png(to_host(eng.render(on(zs[1])))):
+            raise RuntimeError("out=png bytes differ from the direct render")
+        print("  out=png request: bytes equal the direct render's")
+        for rl in (0, 1):
+            ref = TemporalAOEngine(cam, resolve_level=rl)
+            worst = max(float((on(got) - ref.render(on(z), view=v)).abs()
+                              .max())
+                        for got, (z, _), v in zip(dolly[rl], frames, views))
+            print(f"  dolly session, 8 frames, resolve_level={rl}: "
+                  f"max_abs_err={worst:.3e}")
+            if worst != 0.0:
+                raise RuntimeError(f"dolly rl={rl} differs: {worst}")
+        ref = TemporalAOEngine(cam)
+        for t, (z, _) in enumerate(frames[:3]):
+            chk.close("", f"mv session frame {t}", on(mv_out[t]),
+                      ref.render(on(z), motion=None if t == 0 else on(mv)),
+                      tol=0.0)
+        lat = stats["latency_ms"]
+        print(f"  /stats latency over {lat['count']} requests: p50 "
+              f"{lat['p50']} ms, p95 {lat['p95']} ms, max {lat['max']} ms; "
+              f"batcher {b} [{card}]", flush=True)
+        # one 1080p request's host split, measured around the calls
+        body = dumps_pfm(zs[2])
+        split = {"decode": [], "render": [], "encode": [], "request": []}
+        for _ in range(7):
+            t0 = time.perf_counter()
+            (depth,) = loads_pfm_multi(body)
+            t1 = time.perf_counter()
+            ao = to_host(render_frame(srv.to_device(depth), cam,
+                                      AOParams(strength=1.5)))
+            t2 = time.perf_counter()
+            dumps_pfm(ao)
+            t3 = time.perf_counter()
+            client.render(zs[2], strength=1.5)
+            t4 = time.perf_counter()
+            for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[k].append(v * 1e3)
+        med = {k: statistics.median(v) for k, v in split.items()}
+        print(f"  one 1080p request, median of 7: decode "
+              f"{med['decode']:.3f} ms, upload+render+download "
+              f"{med['render']:.3f} ms, encode {med['encode']:.3f} ms; "
+              f"whole request through the client {med['request']:.3f} ms "
+              f"[{card}]", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    torch.cuda.empty_cache()
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -533,9 +799,8 @@ def main() -> int:
     torch.cuda.synchronize()
     main_counts = K.launch_counts()
     print(f"  main path, batch (4, {h0}, {w0}) auto: launches {main_counts}")
-    want_counts = {"render_ao_level": 1, "render_ao_level_normals": 0,
-                   "blur_upsample_step": 1, "fused_render_upsample_step": 3,
-                   "windowed_resolve": 0}
+    want_counts = counts(render_ao_level=1, blur_upsample_step=1,
+                         fused_render_upsample_step=3)
     if main_counts != want_counts:
         raise RuntimeError(f"main path launches {main_counts} != "
                            f"{want_counts}")
@@ -544,9 +809,7 @@ def main() -> int:
     if K.launch_counts() != dict.fromkeys(want_counts, 0):
         raise RuntimeError(f"impl='jnp' launched {K.launch_counts()}")
     out_pallas = render_frame(batch, cam_hw, par, impl="pallas")
-    pallas_counts = {"render_ao_level": 4, "render_ao_level_normals": 0,
-                     "blur_upsample_step": 4, "fused_render_upsample_step": 0,
-                     "windowed_resolve": 0}
+    pallas_counts = counts(render_ao_level=4, blur_upsample_step=4)
     if K.launch_counts() != pallas_counts:
         raise RuntimeError(f"impl='pallas' launched {K.launch_counts()}")
     if not bool(((out_auto >= 0) & (out_auto <= 1)).all()):
@@ -637,6 +900,14 @@ def main() -> int:
                                                     w0)
     ms.update(phase_times_new(card, K, cam, wp, pyr_n, spyr, z4, n4, d4k,
                               n4k, dz, dn, views))
+    del z4, n4, d4k, n4k, dz, dn, pyr_n, spyr
+    torch.cuda.empty_cache()
+
+    # 10-11: the two variants through their entry points, and serving
+    variant_counts, variant_ms = phase_variants(chk, dev, K, P, F, cam, card,
+                                                pyr, c_in)
+    ms.update(variant_ms)
+    phase_serving(chk, dev, K, F, cam, card)  # asserts its own counts
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
@@ -653,6 +924,10 @@ def main() -> int:
                   "tpuao/ops/pallas_kernels.py:461", main_counts),
         "windowed": ("windowed_resolve", "tpuao_torch/csrc/windowed.cu",
                      "tpuao/ops/pallas_kernels.py:767", temporal_counts),
+        "dma": ("render_ao_level_dma", "tpuao_torch/csrc/render_dma.cu",
+                "tpuao/ops/pallas_kernels.py:605", variant_counts),
+        "zc": ("fused_render_upsample_step_zc", "tpuao_torch/csrc/fused_zc.cu",
+               "tpuao/ops/pallas_kernels.py:351", variant_counts),
     }
     kernels = [{"name": fn, "route": "cuda", "source": src, "replaces": rep,
                 "launches": run[fn], "max_abs_err": chk.worst[key],

@@ -1,7 +1,8 @@
 """The CUDA kernels of tpuao_torch against their plain versions, on a GPU.
 
-The kernel-vs-plain cases of chip_smoke.py at small sizes, and the launch
-counts of the frame, normals and temporal paths.  Every
+The kernel-vs-plain cases of chip_smoke.py at small sizes, the two kernel
+variants against their siblings (bit for bit), and the launch counts of
+the frame, normals and temporal paths.  Every
 test needs a CUDA device and skips without one (a CUDA kernel has no CPU
 mode; the plain versions are tested on the CPU against the JAX package in
 tests/test_torch_ops.py).  This file imports no JAX, so it also runs on a
@@ -36,6 +37,13 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def counts(**nonzero) -> dict:
+    """A full launch-count dict: the named kernels, every other one 0."""
+    out = dict.fromkeys(K.launch_counts(), 0)
+    out.update(nonzero)
+    return out
 
 
 def close(got, want, tol=TOL):
@@ -120,18 +128,13 @@ def test_render_frame_impls_and_launch_counts(dev, hw, depth):
     want = render_frame(d, cam, par, impl="jnp")
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="auto"), want)
-    assert K.launch_counts() == {"render_ao_level": 1,
-                                 "render_ao_level_normals": 0,
-                                 "blur_upsample_step": 1,
-                                 "fused_render_upsample_step": depth - 1,
-                                 "windowed_resolve": 0}
+    assert K.launch_counts() == counts(render_ao_level=1,
+                                       blur_upsample_step=1,
+                                       fused_render_upsample_step=depth - 1)
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="pallas"), want)
-    assert K.launch_counts() == {"render_ao_level": depth,
-                                 "render_ao_level_normals": 0,
-                                 "blur_upsample_step": depth,
-                                 "fused_render_upsample_step": 0,
-                                 "windowed_resolve": 0}
+    assert K.launch_counts() == counts(render_ao_level=depth,
+                                       blur_upsample_step=depth)
 
 
 def normals_scene(dev, h=128, w=192, seed=3, batch=None):
@@ -230,13 +233,12 @@ def test_temporal_frames_and_launch_counts(dev, resolve_level):
         K.reset_launch_counts()
         got = engines["auto"].render(frames[t], view=views[t])
         close(got, want)
-        want_counts = ({"render_ao_level": 1, "blur_upsample_step": 1,
-                        "fused_render_upsample_step": 3}
+        want_counts = (counts(render_ao_level=1, blur_upsample_step=1,
+                              fused_render_upsample_step=3)
                        if resolve_level == 0 else
-                       {"render_ao_level": 2, "blur_upsample_step": 2,
-                        "fused_render_upsample_step": 2})
-        want_counts.update(render_ao_level_normals=0,
-                           windowed_resolve=int(t > 0))
+                       counts(render_ao_level=2, blur_upsample_step=2,
+                              fused_render_upsample_step=2))
+        want_counts.update(windowed_resolve=int(t > 0))
         assert K.launch_counts() == want_counts
 
 
@@ -280,6 +282,87 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="device"):
         render_frame(z, CAM, AOParams(use_normals=True),
                      normals=torch.zeros(64, 96, 3))
+
+
+@pytest.mark.parametrize("h,w", [(64, 96), (44, 64), (37, 50), (130, 200)])
+def test_render_dma_equals_render_kernel(dev, h, w):
+    """Bit for bit against render.cu (the same render_texel on the same
+    tap values), at several row_tile values, on uneven levels (rows not a
+    multiple of the tile, widths not a multiple of 4: 4-byte copies) and
+    batched."""
+    z = uniform(dev, (3, h, w), 0.05, 1.0, 20)
+    z[1] = torch.as_tensor(F.spheres_on_plane(h, w, CAM, seed=4),
+                           dtype=torch.float32, device=dev)
+    for ex in (True, False):
+        par = AOParams(exhaustive=ex, strength=1.3)
+        sib = K.render_ao_level(z, 1, 2 * w, CAM, par)
+        plain = K.render_ao_level_plain(z, 1, 2 * w, CAM, par)
+        K.reset_launch_counts()
+        for rt in (128, 1, 16, 23, 10000):
+            got = K.render_ao_level_dma(z, 1, 2 * w, CAM, par, row_tile=rt)
+            close(got, sib, 0.0)
+            close(got, plain)
+        assert K.render_ao_level_dma.launches == 5
+        close(K.render_ao_level_dma(z[2], 1, 2 * w, CAM, par), sib[2], 0.0)
+
+
+@pytest.mark.parametrize("lh,lw,crop", [(44, 64, None), (44, 64, (87, 127)),
+                                        (96, 64, None), (4, 4, (7, 5)),
+                                        (61, 94, (121, 187))])
+def test_fused_zc_equals_fused_kernel(dev, lh, lw, crop):
+    ds = uniform(dev, (2, lh, lw), 0.2, 0.8, 21)
+    c1 = uniform(dev, (2, lh, lw), 0.3, 1.0, 22)
+    hi = uniform(dev, (2, 2 * lh, 2 * lw), 0.2, 0.8, 23)
+    args = (ds, c1, hi, 1, 2 * lw, CAM, AOParams())
+    sib = K.fused_render_upsample_step(*args, crop_hw=crop)
+    plain = K.fused_render_upsample_step_plain(*args, crop_hw=crop)
+    K.reset_launch_counts()
+    for rt in (64, 16, 41, 1000):
+        got = K.fused_render_upsample_step_zc(*args, row_tile=rt,
+                                              crop_hw=crop)
+        close(got, sib, 0.0)
+        close(got, plain)
+    assert K.fused_render_upsample_step_zc.launches == 4
+    assert K.fused_render_upsample_step.launches == 0
+
+
+def test_render_kernels_round_like_their_plain_versions(dev):
+    """At level 1 of a 4K frame inv_r is large enough that a pair test
+    contracted into FMAs lands over 1e-6 from the plain version; the
+    kernels round each step as it does, and stay within 1.1e-6."""
+    cam = CameraParams(depth_mode="linear")
+    z = torch.as_tensor(F.spheres_on_plane(2176, 3840, cam, seed=7),
+                        dtype=torch.float32, device=dev)
+    pyr = [lvl.contiguous()
+           for lvl in P.build_pyramid(P.linearize_depth(z, cam), 2)]
+    par = AOParams()
+    plain = K.render_ao_level_plain(pyr[1], 1, 3840, cam, par)
+    close(K.render_ao_level(pyr[1], 1, 3840, CAM, par), plain, 1.1e-6)
+    close(K.render_ao_level_dma(pyr[1], 1, 3840, CAM, par), plain, 1.1e-6)
+    c1 = torch.rand(pyr[2].shape, device=dev)
+    args = (pyr[2], c1, pyr[1], 2, 3840, CAM, par)
+    want = K.fused_render_upsample_step_plain(*args)
+    close(K.fused_render_upsample_step(*args), want, 1.1e-6)
+    close(K.fused_render_upsample_step_zc(*args), want, 1.1e-6)
+
+
+def test_variants_raise_on_what_the_kernels_do_not_take(dev):
+    z = uniform(dev, (64, 96), 0.2, 0.8, 24)
+    hi = uniform(dev, (128, 192), 0.2, 0.8, 25)
+    par = AOParams()
+    with pytest.raises(ValueError, match="contiguous"):
+        K.render_ao_level_dma(z[:, ::2], 1, 96, CAM, par)
+    with pytest.raises(TypeError, match="float32"):
+        K.render_ao_level_dma(z.double(), 1, 96, CAM, par)
+    with pytest.raises(ValueError, match="4x4"):
+        K.render_ao_level_dma(z[:3].contiguous(), 1, 96, CAM, par)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_render_upsample_step_zc(z, z.t().contiguous().t(), hi, 1,
+                                        192, CAM, par)
+    with pytest.raises(TypeError, match="float32"):
+        K.fused_render_upsample_step_zc(z, z.half(), hi, 1, 192, CAM, par)
+    with pytest.raises(ValueError, match="expected"):  # mixed devices
+        K.fused_render_upsample_step_zc(z, z, hi.cpu(), 1, 192, CAM, par)
 
 
 def test_timing_reads_the_device(dev):

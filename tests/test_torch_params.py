@@ -216,6 +216,10 @@ def test_import_loads_no_jax():
         "import tpuao_torch.utils.fixtures, tpuao_torch.utils.timing\n"
         "import tpuao_torch.ops.temporal, tpuao_torch.models.presets\n"
         "import tpuao_torch.utils.camera\n"
+        "import tpuao_torch.serving, tpuao_torch.client\n"
+        "import tpuao_torch.utils.frameio, tpuao_torch.utils.native\n"
+        "import tpuao_torch.utils.batching, tpuao_torch.utils.resilience\n"
+        "import tpuao_torch.utils.io, tpuao_torch.parallel.sharding\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpuao'))\n"

@@ -2,8 +2,9 @@
 
 The frame path of ``tpuao`` (depth [+ normals] -> linearise -> pyramid ->
 per-level AO -> blur/upsample chain -> crop [-> composite -> quantise]),
-its engines and its temporal accumulation in PyTorch, with the JAX
-package's Pallas kernels of those paths written by hand in CUDA C++ for
+its engines, its temporal accumulation and its HTTP serving path
+(``tpuao_torch.serving``, ``tpuao_torch.client``) in PyTorch, with every
+Pallas kernel of the JAX package written by hand in CUDA C++ for
 ``sm_90a`` (``tpuao_torch/csrc``).  It imports neither ``jax`` nor
 ``tpuao``; ``tpuao`` stays the reference it is tested against::
 

@@ -1,9 +1,10 @@
 // One blur+upsample chain step on a shared-memory tile, optionally with
 // the level's AO rendered in the same block (the fused step).
 //
-// Used by upsample.cu (NP == 0: the lo AO is read from memory) and by
+// Used by upsample.cu (NP == 0: the lo AO is read from memory), by
 // fused.cu (NP > 0: the lo AO is rendered here and never reaches device
-// memory).  The math is the composition rule of
+// memory) and, through its filter and 2x stages, by fused_zc.cu.  The
+// math is the composition rule of
 // tpuao/ops/upsample.py::blur_upsample_step:
 //   1. lo = min(lo_ao, lo_ao2) [pre-min], edge-extended by one texel at
 //      the bottom and right to (lh+1, lw+1);
@@ -40,66 +41,52 @@ struct ChainArgs {
   const float* hi_blend;  // (2lh, 2lw) hi AO to min into, or nullptr
   float* out;             // (h0, w0), h0 <= 2lh, w0 <= 2lw
   int lh, lw, h0, w0;
-  float k_blur, k_up, nfs;          // upsample tunables
-  float falloff, strength, inv_rc;  // render tunables (NP > 0)
+  float k_blur, k_up, nfs;  // upsample tunables
+  float falloff, strength;  // render tunables (NP > 0)
 };
 
-template <int NP>
-__global__ void __launch_bounds__(kTileW * kTileH)
-chain_step_kernel(const __grid_constant__ ChainArgs a,
-                  const __grid_constant__ PairTable pt) {
-  __shared__ float s_a[kTileH][kTileW];  // lo AO after pre-min
-  __shared__ float s_d[kTileH][kTileW];  // lo depth
-  __shared__ float s_f[kOutH + 1][kOutW + 1];  // filtered, extended domain
+// The block's shared tiles: the extended lo tile's AO (after pre-min) and
+// depth, and the filtered field on the (kOutH+1) x (kOutW+1) positions the
+// 2x taps read.
+struct ChainTile {
+  float a[kTileH][kTileW];
+  float d[kTileH][kTileW];
+  float f[kOutH + 1][kOutW + 1];
+};
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * kOutH, j0 = blockIdx.x * kOutW;
-  const size_t lo_plane = (size_t)a.lh * a.lw * blockIdx.z;
-  const size_t hi_plane = lo_plane * 4;
-  const size_t out_plane = (size_t)a.h0 * a.w0 * blockIdx.z;
-  const float* lo_d = a.lo_d + lo_plane;
-
-  {  // 1. the extended tile at clamped coordinates
-    const int r = min(max(i0 - 1 + ty, 0), a.lh - 1);
-    const int c = min(max(j0 - 1 + tx, 0), a.lw - 1);
-    const size_t idx = (size_t)r * a.lw + c;
-    float ao;
-    if constexpr (NP > 0) {
-      ao = render_texel<NP>(lo_d, a.lh, a.lw, r, c, pt, a.falloff,
-                            a.strength, a.inv_rc);
-    } else {
-      ao = a.lo_ao[lo_plane + idx];
-    }
-    if (a.lo_ao2 != nullptr) ao = fminf(ao, a.lo_ao2[lo_plane + idx]);
-    s_a[ty][tx] = ao;
-    s_d[ty][tx] = lo_d[idx];
-  }
-  __syncthreads();
-
-  // 2. noise filter at extended position (i0+ty, j0+tx): the centre is
-  // tile slot (ty+1, tx+1), which holds lo texel min(i0+ty, lh-1).
-  if (ty <= kOutH && tx <= kOutW) {
-    const float dc = s_d[ty + 1][tx + 1];
-    float acc = 0.0f, wacc = 0.0f;
+// Stage 2: noise filter at extended position (i0+ty, j0+tx): the centre is
+// tile slot (ty+1, tx+1), which holds lo texel min(i0+ty, lh-1).  Reads
+// t.a and t.d, writes t.f; the caller synchronises around it.
+__device__ __forceinline__ void chain_filter(ChainTile& t, float nfs, int tx,
+                                             int ty) {
+  if (ty > kOutH || tx > kOutW) return;
+  const float dc = t.d[ty + 1][tx + 1];
+  float acc = 0.0f, wacc = 0.0f;
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
+  for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float g = (dy == 0 ? 2.0f : 1.0f) * (dx == 0 ? 2.0f : 1.0f);
-        const float dd = s_d[ty + 1 + dy][tx + 1 + dx] - dc;
-        const float wt = g / (1.0f + a.nfs * dd * dd);
-        acc += wt * s_a[ty + 1 + dy][tx + 1 + dx];
-        wacc += wt;
-      }
+    for (int dx = -1; dx <= 1; ++dx) {
+      const float g = (dy == 0 ? 2.0f : 1.0f) * (dx == 0 ? 2.0f : 1.0f);
+      const float dd = t.d[ty + 1 + dy][tx + 1 + dx] - dc;
+      const float wt = g / (1.0f + nfs * dd * dd);
+      acc += wt * t.a[ty + 1 + dy][tx + 1 + dx];
+      wacc += wt;
     }
-    s_f[ty][tx] = acc / wacc;
   }
-  __syncthreads();
+  t.f[ty][tx] = acc / wacc;
+}
 
-  // 3. bilateral 2x of lo texel (i, j) into its four hi texels
+// Stage 3: bilateral 2x of lo texel (i0+ty, j0+tx) into its four hi
+// texels, for lo rows below i_end only; writes only the (h0, w0) crop.
+__device__ __forceinline__ void chain_upsample(const ChainTile& t,
+                                               const ChainArgs& a, int i0,
+                                               int j0, int i_end, int tx,
+                                               int ty) {
   if (ty >= kOutH || tx >= kOutW) return;
   const int i = i0 + ty, j = j0 + tx;
-  if (2 * i >= a.h0 || 2 * j >= a.w0) return;
+  if (i >= i_end || 2 * i >= a.h0 || 2 * j >= a.w0) return;
+  const size_t hi_plane = (size_t)a.lh * a.lw * blockIdx.z * 4;
+  const size_t out_plane = (size_t)a.h0 * a.w0 * blockIdx.z;
   const int hw = 2 * a.lw;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -116,9 +103,9 @@ chain_step_kernel(const __grid_constant__ ChainArgs a,
           const float wr = p == 0 ? 1.0f : 0.5f;
           const float wc = q == 0 ? 1.0f : 0.5f;
           // depth of lo tap min(i+dr, lh-1) sits in tile slot ty+dr+1
-          const float dd = s_d[ty + dr + 1][tx + dc + 1] - hd;
+          const float dd = t.d[ty + dr + 1][tx + dc + 1] - hd;
           const float wt = (wr * wc) / (dd * dd / a.k_blur + a.k_up);
-          acc += wt * s_f[ty + dr][tx + dc];
+          acc += wt * t.f[ty + dr][tx + dc];
           wacc += wt;
         }
       }
@@ -128,6 +115,37 @@ chain_step_kernel(const __grid_constant__ ChainArgs a,
       a.out[out_plane + (size_t)hr * a.w0 + hc] = v;
     }
   }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kTileW * kTileH)
+chain_step_kernel(const __grid_constant__ ChainArgs a,
+                  const __grid_constant__ PairTable pt) {
+  __shared__ ChainTile t;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = blockIdx.y * kOutH, j0 = blockIdx.x * kOutW;
+  const size_t lo_plane = (size_t)a.lh * a.lw * blockIdx.z;
+  const float* lo_d = a.lo_d + lo_plane;
+
+  {  // 1. the extended tile at clamped coordinates
+    const int r = min(max(i0 - 1 + ty, 0), a.lh - 1);
+    const int c = min(max(j0 - 1 + tx, 0), a.lw - 1);
+    const size_t idx = (size_t)r * a.lw + c;
+    float ao;
+    if constexpr (NP > 0) {
+      ao = render_texel<NP>(GlobalTaps{lo_d, a.lh, a.lw}, r, c, pt,
+                            a.falloff, a.strength);
+    } else {
+      ao = a.lo_ao[lo_plane + idx];
+    }
+    if (a.lo_ao2 != nullptr) ao = fminf(ao, a.lo_ao2[lo_plane + idx]);
+    t.a[ty][tx] = ao;
+    t.d[ty][tx] = lo_d[idx];
+  }
+  __syncthreads();
+  chain_filter(t, a.nfs, tx, ty);
+  __syncthreads();
+  chain_upsample(t, a, i0, j0, a.lh, tx, ty);
 }
 
 // Launches one chain step over `batch` frames; returns the cudaError_t.

@@ -21,8 +21,8 @@
 extern "C" int tpuao_fused_render_upsample_step(
     const float* ds, const float* c1, const float* hi_d, float* out,
     int batch, int lh, int lw, int h0, int w0, const void* pairs, int npairs,
-    float falloff, float strength, float inv_rc, float k_blur, float k_up,
-    float nfs, int device, void* stream) {
+    float falloff, float strength, float k_blur, float k_up, float nfs,
+    int device, void* stream) {
   using namespace tpuao;
   if (lh < 4 || lw < 4) return cudaErrorInvalidValue;
   PairTable pt;
@@ -30,7 +30,7 @@ extern "C" int tpuao_fused_render_upsample_step(
   if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
   std::memcpy(pt.p, pairs, sizeof(Pair) * npairs);
   const ChainArgs a{nullptr, c1, ds, hi_d, nullptr, out, lh, lw, h0, w0,
-                    k_blur, k_up, nfs, falloff, strength, inv_rc};
+                    k_blur, k_up, nfs, falloff, strength};
   if (npairs == 34) return launch_chain_step<34>(a, pt, batch, device, stream);
   return launch_chain_step<10>(a, pt, batch, device, stream);
 }

@@ -17,12 +17,13 @@
 // read straight from the unpadded level through the parity-4 index rule,
 // so no padded copy or halo windows are built.  The pair loop is unrolled
 // over a compile-time pair count (34 exhaustive, 10 sparse) with the
-// table in the constant bank; the tunables, 1/radius_coef and the normals
-// path's off_scale / texel_scale are runtime arguments and the per-level
-// m2 table rides in the pair table, so nothing rebuilds when they change.
+// table in the constant bank; the tunables and the normals path's
+// off_scale / texel_scale are runtime arguments and the per-level inv_r
+// and m2 ride in the pair table, so nothing rebuilds when they change.
 // The normals read only the centre texel (no halo), once per thread,
-// which keeps their extra traffic to one coalesced load per plane.  A
-// shared-memory tile with a cp.async/TMA pipeline is later work.
+// which keeps their extra traffic to one coalesced load per plane.  The
+// depth-only estimate with its taps staged in shared memory by a cp.async
+// pipeline is render_dma.cu.
 
 #include <cstring>
 
@@ -43,28 +44,27 @@ __global__ void __launch_bounds__(256)
 render_kernel(const float* __restrict__ z, const float* __restrict__ a,
               const float* __restrict__ b, float* __restrict__ out, int h,
               int w, const __grid_constant__ PairTable pt, float falloff,
-              float strength, float inv_rc, float scale) {
+              float strength, float scale) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
   const size_t hw = (size_t)h * w;
   const size_t plane = hw * blockIdx.z;
   const size_t idx = (size_t)r * w + c;
+  const GlobalTaps taps{z + plane, h, w};
   float ao;
   if constexpr (MODE == kDepthOnly) {
-    ao = render_texel<NP>(z + plane, h, w, r, c, pt, falloff, strength,
-                          inv_rc);
+    ao = render_texel<NP>(taps, r, c, pt, falloff, strength);
   } else if constexpr (MODE == kSlopes) {
-    ao = render_texel<NP, true>(z + plane, h, w, r, c, pt, falloff, strength,
-                                inv_rc, a[plane + idx], b[plane + idx],
-                                scale);
+    ao = render_texel<NP, true>(taps, r, c, pt, falloff, strength,
+                                a[plane + idx], b[plane + idx], scale);
   } else {
     // g = n_xy * texel_scale / max(n_z, 0.05), per level texel
     const float* n = a + 3 * plane + idx;
     const float grad = scale / fmaxf(n[2 * hw], 0.05f);
-    ao = render_texel<NP, true>(z + plane, h, w, r, c, pt, falloff, strength,
-                                inv_rc, __fmul_rn(n[0], grad),
-                                __fmul_rn(n[hw], grad), 1.0f);
+    ao = render_texel<NP, true>(taps, r, c, pt, falloff, strength,
+                                __fmul_rn(n[0], grad), __fmul_rn(n[hw], grad),
+                                1.0f);
   }
   out[plane + idx] = ao;
 }
@@ -73,8 +73,8 @@ template <int MODE>
 cudaError_t launch_render(const float* z, const float* a, const float* b,
                           float* out, int batch, int h, int w,
                           const void* pairs, const float* m2, int npairs,
-                          float falloff, float strength, float inv_rc,
-                          float scale, int device, void* stream) {
+                          float falloff, float strength, float scale,
+                          int device, void* stream) {
   if (batch < 1 || batch > 65535 || h < 4 || w < 4)
     return cudaErrorInvalidValue;
   if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
@@ -90,10 +90,10 @@ cudaError_t launch_render(const float* z, const float* a, const float* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 34)
     render_kernel<34, MODE><<<grid, block, 0, s>>>(
-        z, a, b, out, h, w, pt, falloff, strength, inv_rc, scale);
+        z, a, b, out, h, w, pt, falloff, strength, scale);
   else
     render_kernel<10, MODE><<<grid, block, 0, s>>>(
-        z, a, b, out, h, w, pt, falloff, strength, inv_rc, scale);
+        z, a, b, out, h, w, pt, falloff, strength, scale);
   return cudaGetLastError();
 }
 
@@ -106,15 +106,14 @@ const char* tpuao_error_string(int err) {
 }
 
 // z, out: (batch, h, w) float32 on the device; pairs: host array of
-// npairs tpuao::Pair.  Returns the launch's cudaError_t.
+// npairs tpuao::Pair of this level.  Returns the launch's cudaError_t.
 int tpuao_render_ao_level(const float* z, float* out, int batch, int h, int w,
                           const void* pairs, int npairs, float falloff,
-                          float strength, float inv_rc, int device,
-                          void* stream) {
+                          float strength, int device, void* stream) {
   using namespace tpuao;
   return launch_render<kDepthOnly>(z, nullptr, nullptr, out, batch, h, w,
                                    pairs, nullptr, npairs, falloff, strength,
-                                   inv_rc, 0.0f, device, stream);
+                                   0.0f, device, stream);
 }
 
 // The normals path.  mode 1 (slopes): a, b = g_x, g_y (batch, h, w),
@@ -125,18 +124,18 @@ int tpuao_render_ao_level_normals(const float* z, const float* a,
                                   const float* b, float* out, int batch,
                                   int h, int w, const void* pairs,
                                   const float* m2, int npairs, float falloff,
-                                  float strength, float inv_rc, float scale,
-                                  int mode, int device, void* stream) {
+                                  float strength, float scale, int mode,
+                                  int device, void* stream) {
   using namespace tpuao;
   if (m2 == nullptr) return cudaErrorInvalidValue;
   if (mode == kSlopes)
     return launch_render<kSlopes>(z, a, b, out, batch, h, w, pairs, m2,
-                                  npairs, falloff, strength, inv_rc, scale,
-                                  device, stream);
+                                  npairs, falloff, strength, scale, device,
+                                  stream);
   if (mode == kNormals)
     return launch_render<kNormals>(z, a, nullptr, out, batch, h, w, pairs,
-                                   m2, npairs, falloff, strength, inv_rc,
-                                   scale, device, stream);
+                                   m2, npairs, falloff, strength, scale,
+                                   device, stream);
   return cudaErrorInvalidValue;
 }
 

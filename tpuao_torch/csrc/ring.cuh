@@ -1,0 +1,88 @@
+// A ring of depth rows in shared memory, filled by cp.async straight from
+// the unpadded level, for the kernels that walk a column strip downwards
+// (render_dma.cu, fused_zc.cu).
+//
+// The ring holds kRows (a power of two) rows of kCols texels.  Padded row
+// p (-16 <= p < h + 16; rows outside are clamped to that range) sits in
+// ring row (p - base) & (kRows - 1), and padded column c_lo + j in column
+// j.  Addresses are formed under the parity-4 rule (common.cuh), so no
+// padded copy of the level is ever built.  A block that moves its window
+// down by n rows copies only the n new rows: the rows it keeps are
+// already resident.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace tpuao {
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Whether 16-byte copies may be used: rows of a multiple of 4 texels
+// starting on 16-byte boundaries.  Then an aligned group of 4 padded
+// columns maps to 4 adjacent texels under the parity-4 rule (the apron
+// repeats whole 4-texel groups).
+inline bool vec4_ok(const void* z, int w) {
+  return w % 4 == 0 && reinterpret_cast<std::uintptr_t>(z) % 16 == 0;
+}
+
+template <int kRows, int kCols>
+struct Ring {
+  static_assert((kRows & (kRows - 1)) == 0, "ring rows: a power of two");
+  static_assert(kCols % 4 == 0, "ring columns: whole 4-texel groups");
+  float* s;  // kRows x kCols floats, 16-byte aligned
+  int base;  // padded row held in ring row 0 (modulo kRows)
+  int c_lo;  // padded column held in ring column 0; a multiple of 4
+
+  // The taps of render_texel: padded (r, c), which must be resident.
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return s[((r - base) & (kRows - 1)) * kCols + (c - c_lo)];
+  }
+
+  // Issue the copies of padded rows [p0, p0 + n) of the (h, w) level z,
+  // columns [c_lo, c_lo + kCols), shared among `nthreads` threads.  The
+  // caller commits and waits.
+  __device__ __forceinline__ void stage(const float* __restrict__ z, int h,
+                                        int w, int p0, int n, bool vec,
+                                        int tid, int nthreads) const {
+    constexpr int kGroups = kCols / 4;
+    for (int i = tid; i < n * kGroups; i += nthreads) {
+      const int p = p0 + i / kGroups, g = i % kGroups;
+      const float* row = z + (size_t)parity4(min(max(p, -16), h + 15), h) * w;
+      float* dst = s + ((p - base) & (kRows - 1)) * kCols + 4 * g;
+      const int c = c_lo + 4 * g;
+      if (vec && c >= -16 && c + 4 <= w + 16) {
+        cp_async16(dst, row + parity4(c, w));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + e, row + parity4(min(max(c + e, -16), w + 15), w));
+      }
+    }
+  }
+};
+
+}  // namespace tpuao

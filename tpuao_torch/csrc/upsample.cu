@@ -25,7 +25,7 @@ extern "C" int tpuao_blur_upsample_step(const float* lo_ao, const float* lo_ao2,
                                         float nfs, int device, void* stream) {
   using namespace tpuao;
   const ChainArgs a{lo_ao, lo_ao2, lo_d, hi_d, hi_blend, out, lh, lw, h0, w0,
-                    k_blur, k_up, nfs, 0.0f, 0.0f, 0.0f};
+                    k_blur, k_up, nfs, 0.0f, 0.0f};
   const PairTable unused{};
   return launch_chain_step<0>(a, unused, batch, device, stream);
 }

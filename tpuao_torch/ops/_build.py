@@ -25,27 +25,33 @@ import tempfile
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu")
-HEADERS = ("common.cuh", "chain_step.cuh")
+SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
+           "render_dma.cu", "fused_zc.cu")
+HEADERS = ("common.cuh", "chain_step.cuh", "ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# Every entry point returns a cudaError_t; pointers, the host pair table and
-# the stream are c_void_p, sizes c_int, tunables c_float (without argtypes
-# ctypes would pass a Python float as a double).
+# Every entry point returns a cudaError_t; pointers, the host pair table (of
+# one level) and the stream are c_void_p, sizes c_int, tunables c_float
+# (without argtypes ctypes would pass a Python float as a double).
 SIGNATURES = {
     "tpuao_render_ao_level": (
-        _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _I, _P),
+        _P, _P, _I, _I, _I, _P, _I, _F, _F, _I, _P),
     "tpuao_render_ao_level_normals": (
-        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _F, _F, _I, _I, _P),
+        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _F, _I, _I, _P),
     "tpuao_blur_upsample_step": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
     "tpuao_fused_render_upsample_step": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-        _F, _F, _F, _F, _F, _F, _I, _P),
+        _F, _F, _F, _F, _F, _I, _P),
     "tpuao_windowed_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tpuao_render_ao_level_dma": (
+        _P, _P, _I, _I, _I, _I, _P, _I, _F, _F, _I, _P),
+    "tpuao_fused_render_upsample_step_zc": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+        _F, _F, _F, _F, _F, _I, _P),
 }
 
 

@@ -4,8 +4,10 @@ Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
 
 * a wrapper (``render_ao_level``, ``render_ao_level_normals``,
   ``blur_upsample_step``, ``fused_render_upsample_step``,
-  ``windowed_resolve``): on a CPU tensor it runs the plain version; on a
-  CUDA tensor it launches the kernel (``csrc/``, built by
+  ``windowed_resolve``, and the two variants that no ``impl`` of the
+  pipeline reaches, as in the JAX package: ``render_ao_level_dma`` and
+  ``fused_render_upsample_step_zc``): on a CPU tensor it runs the plain
+  version; on a CUDA tensor it launches the kernel (``csrc/``, built by
   ``ops/_build.py`` at first use) or raises.  It never falls back;
 * a plain PyTorch version (``*_plain``), the CPU path and the reference the
   kernel is held against on the card;
@@ -33,18 +35,27 @@ from tpuao_torch.params import (AOParams, sphere_radius_coef,
 
 # One tap pair as the kernels read it (tpuao::Pair in csrc/common.cuh).
 _PAIR_DTYPE = np.dtype([("dx", np.int32), ("dy", np.int32),
-                        ("inv_t", np.float32), ("half_w", np.float32)])
+                        ("inv_r", np.float32), ("half_w", np.float32)])
 _MAX_BATCH = 65535  # gridDim.z
 
 
-@functools.lru_cache(maxsize=2)
-def pair_table(exhaustive: bool) -> np.ndarray:
-    """The kernels' pair table for ``exhaustive``: 34 pairs, or 10 sparse."""
+@functools.lru_cache(maxsize=64)
+def pair_table(exhaustive: bool, radius_coef: float) -> np.ndarray:
+    """The kernels' pair table of one level: 34 pairs (or 10 sparse) with
+    ``inv_r = 1 / (radius_coef * t)`` and half the weight, formed in
+    float64 and rounded once to float32, as the plain version rounds them.
+    Cached: one array serves every call at the level."""
     pairs = R._pair_constants(AOParams(exhaustive=exhaustive))
     table = np.zeros(len(pairs), _PAIR_DTYPE)
     for k, (dx, dy, t, w) in enumerate(pairs):
-        table[k] = (dx, dy, 1.0 / t, 0.5 * w)
+        table[k] = (dx, dy, 1.0 / (radius_coef * t), 0.5 * w)
+    table.setflags(write=False)
     return table
+
+
+def _level_table(params, level: int, full_width: int, camera) -> np.ndarray:
+    return pair_table(bool(params.exhaustive),
+                      _radius_coef(level, full_width, camera, params))
 
 
 def _check(name: str, x: torch.Tensor) -> None:
@@ -127,13 +138,12 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
     _check_kernel_input("ds", ds, ds.device, lead)
     h, w = ds.shape[-2:]
     _check_level(h, w)
-    table = pair_table(bool(params.exhaustive))
+    table = _level_table(params, level, full_width, camera)
     out = torch.empty_like(ds)
     _launch("tpuao_render_ao_level", ds.data_ptr(), out.data_ptr(),
             _batch(lead), h, w, table.ctypes.data, len(table),
             float(params.rejection_falloff), float(params.strength),
-            _inv_rc(level, full_width, camera, params), ds.device.index,
-            _stream(ds.device))
+            ds.device.index, _stream(ds.device))
     render_ao_level.launches += 1
     return out
 
@@ -147,9 +157,51 @@ def _check_level(h: int, w: int) -> None:
                          f"got {(h, w)}")
 
 
-def _inv_rc(level: int, full_width: int, camera, params) -> float:
-    return 1.0 / sphere_radius_coef(level, full_width, camera.tan_half_fov_h,
-                                    params.screenspace_diameter)
+def _row_tile(row_tile) -> int:
+    row_tile = int(row_tile)
+    if row_tile < 1:
+        raise ValueError(f"row_tile must be >= 1, got {row_tile}")
+    return row_tile
+
+
+def _radius_coef(level: int, full_width: int, camera, params) -> float:
+    return float(sphere_radius_coef(level, full_width, camera.tan_half_fov_h,
+                                    params.screenspace_diameter))
+
+
+# ---------------------------------------------------------------------------
+# 1d. Per-level AO estimator, double-buffered (replaces
+#     pallas_kernels.render_ao_level_dma)
+# ---------------------------------------------------------------------------
+
+
+def render_ao_level_dma(ds: torch.Tensor, level: int, full_width: int,
+                        camera, params, row_tile: int = 128) -> torch.Tensor:
+    """Depth-only AO of one (..., h, w) level with the level staged in
+    shared memory by a double-buffered cp.async pipeline; kernel
+    ``csrc/render_dma.cu``, whose blocks walk ``min(row_tile, h)`` rows
+    each.  ``row_tile`` does not change the result; normals are not taken
+    (as in the JAX package).  Its plain version is
+    ``render_ao_level_plain``."""
+    _check("ds", ds)
+    row_tile = _row_tile(row_tile)
+    if ds.device.type == "cpu":
+        return render_ao_level_plain(ds, level, full_width, camera, params)
+    lead = tuple(ds.shape[:-2])
+    _check_kernel_input("ds", ds, ds.device, lead)
+    h, w = ds.shape[-2:]
+    _check_level(h, w)
+    table = _level_table(params, level, full_width, camera)
+    out = torch.empty_like(ds)
+    _launch("tpuao_render_ao_level_dma", ds.data_ptr(), out.data_ptr(),
+            _batch(lead), h, w, min(row_tile, h), table.ctypes.data,
+            len(table), float(params.rejection_falloff),
+            float(params.strength), ds.device.index, _stream(ds.device))
+    render_ao_level_dma.launches += 1
+    return out
+
+
+render_ao_level_dma.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -169,9 +221,8 @@ def tangent_m2(params, level: int, full_width: int, camera) -> np.ndarray:
     """The kernel's per-pair soft-clamp scale ``(0.5 * radius_coef * t)^2``
     at ``level``, computed in float64 and rounded once, as the plain
     version rounds it."""
-    return _m2_table(bool(params.exhaustive), float(sphere_radius_coef(
-        level, full_width, camera.tan_half_fov_h,
-        params.screenspace_diameter)))
+    return _m2_table(bool(params.exhaustive),
+                     _radius_coef(level, full_width, camera, params))
 
 
 @functools.lru_cache(maxsize=64)
@@ -234,15 +285,14 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
         b = None
         mode = 2
         scale = R.texel_scale(level, full_width, camera.tan_half_fov_h)
-    table = pair_table(bool(params.exhaustive))
+    table = _level_table(params, level, full_width, camera)
     m2 = tangent_m2(params, level, full_width, camera)
     out = torch.empty_like(ds)
     _launch("tpuao_render_ao_level_normals", ds.data_ptr(), a.data_ptr(),
             _ptr(b), out.data_ptr(), _batch(lead), h, w, table.ctypes.data,
             m2.ctypes.data, len(table), float(params.rejection_falloff),
-            float(params.strength), _inv_rc(level, full_width, camera,
-                                            params), float(scale), mode,
-            ds.device.index, _stream(ds.device))
+            float(params.strength), float(scale), mode, ds.device.index,
+            _stream(ds.device))
     render_ao_level_normals.launches += 1
     if mode == 2:
         render_ao_level_normals.raw_launches += 1
@@ -318,14 +368,9 @@ def fused_render_upsample_step_plain(ds, c1, hi_d, level: int,
                                 crop_hw=crop_hw)
 
 
-def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
-                               hi_d: torch.Tensor, level: int,
-                               full_width: int, camera, params,
-                               crop_hw=None) -> torch.Tensor:
-    """Render level ``level`` (``ds``, (..., lh, lw)), min it with the
-    combined AO from below ``c1``, and run the chain step up to ``hi_d``
-    (..., 2lh, 2lw); the level's AO never reaches device memory.  Kernel
-    ``csrc/fused.cu``."""
+def _check_fused(ds, c1, hi_d, crop_hw) -> tuple[int, int, int, int]:
+    """The fused steps' inputs: (lh, lw), (2lh, 2lw) and the crop; returns
+    ``(lh, lw, h0, w0)``."""
     for name, x in (("ds", ds), ("c1", c1), ("hi_d", hi_d)):
         _check(name, x)
     lh, lw = ds.shape[-2:]
@@ -335,30 +380,87 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
     if tuple(hi_d.shape[-2:]) != (2 * lh, 2 * lw):
         raise ValueError(f"hi_d: spatial shape {tuple(hi_d.shape[-2:])}, "
                          f"expected {(2 * lh, 2 * lw)}")
-    h0, w0 = _crop(crop_hw, 2 * lh, 2 * lw)
-    if ds.device.type == "cpu":
-        return fused_render_upsample_step_plain(
-            ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
+    return (lh, lw) + _crop(crop_hw, 2 * lh, 2 * lw)
+
+
+def _fused_launch(entry: str, dims, ds, c1, hi_d, level: int,
+                  full_width: int, camera, params, *extra) -> torch.Tensor:
+    """Launch one of the fused entry points on CUDA tensors; ``dims`` is
+    ``_check_fused``'s, ``extra`` goes between the sizes and the pair table
+    (the zero-copy step's R)."""
+    lh, lw, h0, w0 = dims
     lead = tuple(ds.shape[:-2])
     for name, x in (("ds", ds), ("c1", c1), ("hi_d", hi_d)):
         _check_kernel_input(name, x, ds.device, lead)
     if lh < 4 or lw < 4:
         raise ValueError(f"fused kernel needs a level of at least 4x4, "
                          f"got {(lh, lw)}")
-    table = pair_table(bool(params.exhaustive))
-    inv_rc = _inv_rc(level, full_width, camera, params)
+    table = _level_table(params, level, full_width, camera)
     _, k_blur, k_up, nfs = upsample_constants(params, full_width, lw)
     out = torch.empty(*lead, h0, w0, dtype=torch.float32, device=ds.device)
-    _launch("tpuao_fused_render_upsample_step", ds.data_ptr(), c1.data_ptr(),
-            hi_d.data_ptr(), out.data_ptr(), _batch(lead), lh, lw, h0, w0,
+    _launch(entry, ds.data_ptr(), c1.data_ptr(), hi_d.data_ptr(),
+            out.data_ptr(), _batch(lead), lh, lw, h0, w0, *extra,
             table.ctypes.data, len(table), float(params.rejection_falloff),
-            float(params.strength), float(inv_rc), float(k_blur), float(k_up),
-            float(nfs), ds.device.index, _stream(ds.device))
+            float(params.strength), float(k_blur), float(k_up), float(nfs),
+            ds.device.index, _stream(ds.device))
+    return out
+
+
+def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
+                               hi_d: torch.Tensor, level: int,
+                               full_width: int, camera, params,
+                               crop_hw=None) -> torch.Tensor:
+    """Render level ``level`` (``ds``, (..., lh, lw)), min it with the
+    combined AO from below ``c1``, and run the chain step up to ``hi_d``
+    (..., 2lh, 2lw); the level's AO never reaches device memory.  Kernel
+    ``csrc/fused.cu``."""
+    dims = _check_fused(ds, c1, hi_d, crop_hw)
+    if ds.device.type == "cpu":
+        return fused_render_upsample_step_plain(
+            ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
+    out = _fused_launch("tpuao_fused_render_upsample_step", dims, ds, c1,
+                        hi_d, level, full_width, camera, params)
     fused_render_upsample_step.launches += 1
     return out
 
 
 fused_render_upsample_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 3z. Zero-copy fused step
+#     (replaces pallas_kernels.fused_render_upsample_step_zc)
+# ---------------------------------------------------------------------------
+
+
+def zc_rows(row_tile: int, lh: int) -> int:
+    """Lo rows per block segment: ``max(min(row_tile, lh), 40)``, as the
+    JAX package's zero-copy step takes them (it needs R >= 40 so a window
+    spans two row blocks; here R only sets the grid)."""
+    return max(min(_row_tile(row_tile), lh), 40)
+
+
+def fused_render_upsample_step_zc(ds: torch.Tensor, c1: torch.Tensor,
+                                  hi_d: torch.Tensor, level: int,
+                                  full_width: int, camera, params,
+                                  row_tile: int = 64,
+                                  crop_hw=None) -> torch.Tensor:
+    """``fused_render_upsample_step`` with the level's depth windows put
+    together in shared memory from the plainly stored level: kernel
+    ``csrc/fused_zc.cu``, whose blocks walk ``zc_rows(row_tile, lh)`` lo
+    rows each.  ``row_tile`` does not change the result."""
+    dims = _check_fused(ds, c1, hi_d, crop_hw)
+    seg = zc_rows(row_tile, ds.shape[-2])
+    if ds.device.type == "cpu":
+        return fused_render_upsample_step_plain(
+            ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
+    out = _fused_launch("tpuao_fused_render_upsample_step_zc", dims, ds, c1,
+                        hi_d, level, full_width, camera, params, seg)
+    fused_render_upsample_step_zc.launches += 1
+    return out
+
+
+fused_render_upsample_step_zc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +503,8 @@ def windowed_resolve(prev_ao: torch.Tensor, prev_d: torch.Tensor,
 windowed_resolve.launches = 0
 
 KERNELS = (render_ao_level, render_ao_level_normals, blur_upsample_step,
-           fused_render_upsample_step, windowed_resolve)
+           fused_render_upsample_step, windowed_resolve, render_ao_level_dma,
+           fused_render_upsample_step_zc)
 
 
 def reset_launch_counts() -> None:

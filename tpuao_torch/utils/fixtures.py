@@ -1,4 +1,4 @@
-"""Synthetic depth scenes (the NumPy path of ``tpuao/utils/fixtures.py``).
+"""Synthetic depth scenes (counterpart of ``tpuao/utils/fixtures.py``).
 
 Spheres on a ground plane, ray-cast analytically, plus degenerate scenes
 (flat plane, step edge, corner) with hand-derivable AO.  Depth is
@@ -62,14 +62,23 @@ def sphere_scene_params(n_spheres: int, seed: int, plane_y: float = 1.5):
 
 def spheres_on_plane(h: int, w: int, camera: CameraParams | None = None,
                      n_spheres: int = 5, seed: int = 0,
-                     with_normals: bool = False, eye=None):
+                     with_normals: bool = False, eye=None,
+                     backend: str = "auto"):
     """Analytic ray-cast of random spheres resting on a ground plane.
 
     Camera at the origin looking down +z; the ground plane is y = +1.5
     (buffer y points down).  Returns depth (H, W) [and normals (H, W, 3)
     in buffer view space: x = +column, y = +row, z = toward the camera].
     ``eye`` moves the camera by a translation.
+
+    ``backend``: ``"auto"`` (as in the JAX package) takes the C++
+    ray-caster of ``native/raycast.cpp`` (``utils/native.py``) when it
+    builds, else NumPy; ``"native"`` and ``"numpy"`` force a path.  The two
+    give the same bits; the native one is faster and needs no full-frame
+    temporaries.
     """
+    if backend not in ("numpy", "native", "auto"):
+        raise ValueError(f"backend={backend!r}: numpy, native or auto")
     camera = camera or CameraParams()
     tanh = float(camera.tan_half_fov_h)
     tanv = tanh * h / w
@@ -80,6 +89,16 @@ def spheres_on_plane(h: int, w: int, camera: CameraParams | None = None,
         ex, ey, ez = (float(v) for v in np.asarray(eye, np.float64))
         centers_arr = centers_arr - np.asarray([ex, ey, ez])
         plane_y = plane_y - ey
+
+    if backend != "numpy":
+        from tpuao_torch.utils.native import raycast_spheres_native
+
+        res = raycast_spheres_native(h, w, tanh, tanv, far, plane_y,
+                                     centers_arr, radii_arr, with_normals)
+        if res is not None:
+            return res
+        if backend == "native":
+            raise RuntimeError("native ray-caster unavailable (no g++?)")
 
     # Ray directions per pixel, unit z component: dir = (u, v, 1).
     u = (np.arange(w) + 0.5) / w * 2.0 - 1.0
