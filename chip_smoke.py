@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (``tpuao_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one or more lines each:
 
 1. build   -- compile ``tpuao_torch/csrc`` with nvcc (sm_90a) and print the
-              build time and each kernel's registers and spills;
+              build time and each kernel's registers, shared memory and
+              spills (a spill in the tiled render or fused kernel fails);
 2. card    -- the card's name and power limit, from nvidia-smi;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the 1080p main path's shapes (max_abs_err <= 1e-5);
@@ -18,7 +19,8 @@ Phases, one or more lines each:
               kernel's time beside its plain version's;
 6. normals and windowed kernels against their plain versions on the card:
               the normals render at levels 1-4 of a 1080p scene in both
-              ABIs (slope planes, raw normals), the windowed resolve at
+              ABIs (slope planes, raw normals) and at levels 1-4 of a 4K
+              scene, the windowed resolve at
               the 1080p full- and half-res planes and the 8K plane, with
               displacements past the window and a null history;
 7. engine  -- ``AmbientOcclusionEngine(params=preset("ULTRA"))`` on four
@@ -34,18 +36,31 @@ Phases, one or more lines each:
 10. variants -- the two kernels no impl reaches, through their entry
               points: render_ao_level_dma at level 1 of 1080p, 4K and 8K,
               fused_render_upsample_step_zc at the 1080p steps 2->1 and
-              1->0 and the 4K step 1->0, each equal to its sibling kernel
-              bit for bit, against its plain version, row_tile invariant,
-              timed beside both;
+              1->0 and the 4K and 8K steps 1->0, each equal to its sibling
+              kernel bit for bit (the render and fused kernels, which are
+              held against their plain versions there too), against its
+              plain version, row_tile invariant, timed beside both;
 11. serving -- tpuao_torch.serving on the card (batch_size=4, warmed for
               1080p normals/temporal/temporal_l1) answering direct,
               batched, ULTRA, png, dolly-session (resolve_level 0 and 1),
               mv-session and DELETE requests through the port's client,
               each response equal to the direct render on the card, with
               the launch counts of the run, /stats latency and one
-              request's decode/render/encode split.
+              request's decode/render/encode split;
+12. parent -- the render (depth-only, normals) and fused kernels at the
+              1080p, 4K and 8K shapes, device time per call from CUDA-graph
+              replay, beside the computed bound and the roofline share, and
+              the HIGH and ULTRA paths at four 1080p frames a call (device
+              time by torch.profiler), each beside the same kernels built
+              from an older tree's ``tpuao_torch/csrc`` (``--parent DIR``;
+              by default ``tpuao_torch/_build/parent_csrc`` where that
+              exists), timed in turns (parent, new, new, parent); then the
+              device time by kernel and the idle share of the HIGH path at
+              one and four frames a call and of the ULTRA path.
 
-Then a JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
+path, worst error, event time beside its plain version's, computed bound
+and library call: none), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
 nor the JAX package.
@@ -53,7 +68,11 @@ nor the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +86,58 @@ COUNT_KEYS = ("render_ao_level", "render_ao_level_normals",
               "fused_render_upsample_step_zc")
 TOL_SIBLING = 0.0  # the two variants against their sibling kernels: same
                    # arithmetic on the same tap values, so the same bits
+TOL_EXACT = 0.0  # render kernels (all three modes) against their plain
+                 # versions: every step rounded alike (csrc/common.cuh)
+PARENT_CSRC = "tpuao_torch/_build/parent_csrc"
+
+# The bound: the least time the card could take for a call's work, the
+# larger of its operations at the FP32 peak and its bytes (each input read
+# once, each output written once) at the HBM3 peak (NVIDIA H100 SXM data
+# sheet, 700 W).  Operations counted from the kernels' code: a depth-only
+# pair test is 23 FP32 operations (csrc/common.cuh), the tangent term 11
+# more; a texel adds ~6 (1/z, clamp, pow) or ~8; the noise filter and 2x
+# of a chain step ~153 a lo texel; the windowed resolve ~30 a texel.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+CHAIN_OPS = 153
+WINDOWED_OPS = 30
+NO_LIBRARY = ("none: no single PyTorch call computes a per-texel 34-pair "
+              "estimator, a depth-aware chain step or a windowed tent "
+              "resample")
+
+
+def render_ops(npairs: int, tangent: bool = False) -> int:
+    return (34 if tangent else 23) * npairs + (8 if tangent else 6)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound in ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def render_work(shape, npairs=34, planes=0):
+    """Operations and bytes of one render call on (..., h, w); ``planes``
+    extra input planes (2 slopes, 3 raw normals; tangent term then)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n * render_ops(npairs, planes > 0), 4 * n * (2 + planes)
+
+
+def chain_work(shape, h0, w0, npairs=0, lo_inputs=2, blend=False):
+    """Operations and bytes of one chain step from (..., lh, lw) to the
+    (h0, w0) crop: ``npairs`` > 0 renders the level too (the fused step);
+    ``lo_inputs`` lo planes read (depth and AO or c1, [+ pre-min])."""
+    *lead, lh, lw = (int(d) for d in shape)
+    b = 1
+    for d in lead:
+        b *= d
+    lo = b * lh * lw
+    ops = lo * (CHAIN_OPS + (render_ops(npairs) if npairs else 0))
+    nbytes = 4 * (lo * lo_inputs + 4 * lo * (2 if blend else 1) +
+                  b * h0 * w0)
+    return ops, nbytes
 
 
 def _card() -> str:
@@ -74,6 +145,44 @@ def _card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def short_name(mangled: str) -> str:
+    """``_ZN5tpuao13render_kernelILi34ELi0ELi2EE...`` -> ``render_kernel<34,
+    0, 2>``."""
+    m = re.match(r"_ZN5tpuao(\d+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's registers, shared memory and spilled bytes from the
+    build log's ``-Xptxas -v`` lines."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append({"name": short_name(m.group(1)), "regs": 0, "smem": 0,
+                        "spill": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 class Checks:
@@ -143,7 +252,21 @@ def phase_new_kernels(chk, dev, K, P, R, T, F, cam, h0, w0, hp, wp):
                           K.render_ao_level_normals(pyr[l], l, wp, cam, par,
                                                     **kw[l]),
                           K.render_ao_level_normals_plain(
-                              pyr[l], l, wp, cam, par, **kw[l]))
+                              pyr[l], l, wp, cam, par, **kw[l]),
+                          tol=TOL_EXACT)
+    pyr4, spyr4, npyr4, wp4 = normals_pyramid(dev, P, R, F, cam, 2160, 3840)
+    par = AOParams(use_normals=True)
+    for l in range(1, 5):
+        for abi, kw in (("slopes", {"slopes_ds": spyr4[l]}),
+                        ("normals", {"normals_ds": npyr4[l]})):
+            chk.close("render_normals", f"render_normals {abi} 4K l{l} "
+                      f"{tuple(pyr4[l].shape)}",
+                      K.render_ao_level_normals(pyr4[l], l, wp4, cam, par,
+                                                **kw),
+                      K.render_ao_level_normals_plain(pyr4[l], l, wp4, cam,
+                                                      par, **kw),
+                      tol=TOL_EXACT)
+    del pyr4, spyr4, npyr4
     rng = np.random.default_rng(SEED)
     for (h, w), r in (((h0, w0), 4), ((h0 // 2, w0 // 2), 2),
                       ((4320, 7680), 4)):
@@ -433,6 +556,31 @@ def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
     return kms
 
 
+def normals_pyramid(dev, P, R, F, cam, h0, w0, batch=1):
+    """Levels 0-4 of a sphere scene with normals, padded to 64, with the
+    slope planes and the raw normals of each level; ``batch`` copies of
+    the frame along a leading axis."""
+    import torch
+
+    from tpuao_torch.params import padded_shape
+
+    hp, wp = padded_shape(h0, w0)
+    z, n = F.spheres_on_plane(h0, w0, cam, seed=SEED, with_normals=True)
+    zt = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    nt = torch.as_tensor(n, dtype=torch.float32, device=dev)
+    zp = torch.nn.functional.pad(zt[None], (0, wp - w0, 0, hp - h0),
+                                 mode="replicate")[0]
+    pyr = P.build_pyramid(zp, 4)
+    spyr = R.slope_pyramid(nt, cam.tan_half_fov_h, hp, wp, 4, h0=h0, w0=w0)
+    npyr = R.normals_pyramid(nt, hp, wp, 4)
+
+    def rep(x):
+        return (torch.stack([x] * batch) if batch > 1 else x).contiguous()
+
+    return ([rep(x) for x in pyr], [tuple(rep(g) for g in gs) for gs in spyr],
+            [rep(x) for x in npyr], wp)
+
+
 def level_pyramid(dev, P, F, cam, h0, w0):
     """Levels 0-4 of a sphere scene's linear depth, padded to 64."""
     import torch
@@ -448,11 +596,24 @@ def level_pyramid(dev, P, F, cam, h0, w0):
             for lvl in P.build_pyramid(P.linearize_depth(zp, cam), 4)], wp
 
 
+def chain_inputs(K, cam, par, pyr, wp):
+    """The combined AO from below at levels 3, 2, 1 of a depth-only
+    pyramid (what the fused steps 3->2, 2->1, 1->0 take), by the
+    kernels."""
+    c = {3: K.blur_upsample_step(K.render_ao_level(pyr[4], 4, wp, cam, par),
+                                 pyr[4], pyr[3], par, wp)}
+    for l in (3, 2):
+        c[l - 1] = K.fused_render_upsample_step(pyr[l], c[l], pyr[l - 1], l,
+                                                wp, cam, par)
+    return c
+
+
 def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     """10. The two kernels without an impl of their own, through their
     entry points: the double-buffered render at level 1 of 1080p, 4K and
     8K, the zero-copy step at the 1080p steps 2->1 and 1->0 and the 4K
-    step 1->0.  Held against their sibling kernels (bit for bit) and
+    and 8K steps 1->0.  Held against their sibling kernels (bit for bit),
+    which are held against their plain versions there too, and against
     their plain versions; returns the entry-point run's launch counts and
     the times."""
     import torch
@@ -465,19 +626,16 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     par = AOParams()
     pyr4k, wp4k = level_pyramid(dev, P, F, cam, 2160, 3840)
     pyr8k, wp8k = level_pyramid(dev, P, F, cam, 4320, 7680)
-    # the 4K chain up to level 1 (the combined AO the step 1->0 takes)
-    c = K.blur_upsample_step(K.render_ao_level(pyr4k[4], 4, wp4k, cam, par),
-                             pyr4k[4], pyr4k[3], par, wp4k)
-    for l in (3, 2):
-        c = K.fused_render_upsample_step(pyr4k[l], c, pyr4k[l - 1], l, wp4k,
-                                         cam, par)
+    c = chain_inputs(K, cam, par, pyr4k, wp4k)[1]
+    c8 = chain_inputs(K, cam, par, pyr8k, wp8k)[1]
     dma_in = {"1080p": (pyr1080[1], 1920), "4K": (pyr4k[1], wp4k),
               "8K": (pyr8k[1], wp8k)}
     zc_in = {"1080p 2->1": (pyr1080[2], c_in1080[2], pyr1080[1], 2, 1920,
                             None),
              "1080p 1->0": (pyr1080[1], c_in1080[1], pyr1080[0], 1, 1920,
                             (1080, 1920)),
-             "4K 1->0": (pyr4k[1], c, pyr4k[0], 1, wp4k, (2160, 3840))}
+             "4K 1->0": (pyr4k[1], c, pyr4k[0], 1, wp4k, (2160, 3840)),
+             "8K 1->0": (pyr8k[1], c8, pyr8k[0], 1, wp8k, (4320, 7680))}
     torch.cuda.synchronize()
     K.reset_launch_counts()
     dma_out = {k: K.render_ao_level_dma(d, 1, fw, cam, par)
@@ -489,12 +647,16 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     run = K.launch_counts()
     print(f"  entry-point run: launches {run}")
     expect_counts(K, "variants", counts(render_ao_level_dma=3,
-                                        fused_render_upsample_step_zc=3))
+                                        fused_render_upsample_step_zc=4))
     ms = {}
     for k, (d, fw) in dma_in.items():
         label = f"dma {k} level 1 {tuple(d.shape)}"
-        chk.close("", f"{label} vs render kernel", dma_out[k],
-                  K.render_ao_level(d, 1, fw, cam, par), tol=TOL_SIBLING)
+        rk = K.render_ao_level(d, 1, fw, cam, par)
+        chk.close("", f"{label} vs render kernel", dma_out[k], rk,
+                  tol=TOL_SIBLING)
+        chk.close("render", f"render {k} level 1 {tuple(d.shape)} vs plain",
+                  rk, K.render_ao_level_plain(d, 1, fw, cam, par),
+                  tol=TOL_EXACT)
         chk.close("dma", f"{label} vs plain", dma_out[k],
                   K.render_ao_level_plain(d, 1, fw, cam, par))
         for rt in (16, 37, 4096):
@@ -511,11 +673,13 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     for k, (ds, c1, hi, l, fw, crop) in zc_in.items():
         label = f"zc {k} {tuple(ds.shape)} crop={crop}"
         args = (ds, c1, hi, l, fw, cam, par)
-        chk.close("", f"{label} vs fused kernel", zc_out[k],
-                  K.fused_render_upsample_step(*args, crop_hw=crop),
+        fk = K.fused_render_upsample_step(*args, crop_hw=crop)
+        chk.close("", f"{label} vs fused kernel", zc_out[k], fk,
                   tol=TOL_SIBLING)
-        chk.close("zc", f"{label} vs plain", zc_out[k],
-                  K.fused_render_upsample_step_plain(*args, crop_hw=crop))
+        want = K.fused_render_upsample_step_plain(*args, crop_hw=crop)
+        chk.close("zc", f"{label} vs plain", zc_out[k], want)
+        chk.close("fused", f"fused {k} {tuple(ds.shape)} vs plain", fk, want)
+        del fk, want
         for rt in (40, 100, 4096):
             chk.close("", f"{label} row_tile={rt} vs row_tile=64",
                       K.fused_render_upsample_step_zc(*args, row_tile=rt,
@@ -530,7 +694,7 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
               f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
               flush=True)
     print("  row_tile invariance: 3 settings each, exact")
-    del pyr4k, pyr8k, c, dma_in, zc_in, dma_out, zc_out
+    del pyr4k, pyr8k, c, c8, dma_in, zc_in, dma_out, zc_out
     torch.cuda.empty_cache()
     return run, {"dma": (ms["1080p"][0], ms["1080p"][2]),
                  "zc": (ms["1080p 1->0"][0], ms["1080p 1->0"][2])}
@@ -683,7 +847,209 @@ def phase_serving(chk, dev, K, F, cam, card):
     return run
 
 
-def main() -> int:
+@contextlib.contextmanager
+def kernel_library(lib):
+    """Every wrapper launches from ``lib`` (a library built from another
+    tree's kernels, with the same entry points) inside the block."""
+    from tpuao_torch.ops import _build
+
+    saved = _build.load
+    _build.load = lambda *a: lib
+    try:
+        yield
+    finally:
+        _build.load = saved
+
+
+def phase_parent(dev, K, P, R, F, cam, card, parent):
+    """12. The redesigned kernels (the render in its depth-only and slope
+    modes, the fused step) and the DMA render at the 1080p, 4K and 8K
+    shapes, and the HIGH and ULTRA paths end to end at four 1080p frames a
+    call: device ms per call from CUDA-graph replay, with each kernel's
+    computed bound and roofline share, beside the kernels of ``parent`` (a
+    ``tpuao_torch/csrc`` directory of an older tree, or None), timed in
+    turns: parent, new, new, parent."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.ops import _build
+    from tpuao_torch.params import AOParams
+    from tpuao_torch.utils.timing import cuda_graph_ms
+
+    libs = {"new": _build.load()}
+    if parent is not None:
+        t0 = time.perf_counter()
+        libs["parent"] = _build.load(pathlib.Path(parent))
+        print(f"parent kernels ({parent}) built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    else:
+        print(f"no parent kernels ({PARENT_CSRC} absent, no --parent): "
+              "new times only")
+    print(f"device ms per call: kernels by CUDA-graph replay, paths by "
+          f"torch.profiler [{card}]:")
+    par, pn = AOParams(), AOParams(use_normals=True)
+    pyr = {k: level_pyramid(dev, P, F, cam, *hw) for k, hw in
+           (("1080p", (1080, 1920)), ("4K", (2160, 3840)),
+            ("8K", (4320, 7680)))}
+    chains = {k: chain_inputs(K, cam, par, *v) for k, v in pyr.items()}
+    npyr = {"1080p x4": normals_pyramid(dev, P, R, F, cam, 1080, 1920, 4),
+            "4K": normals_pyramid(dev, P, R, F, cam, 2160, 3840)}
+
+    def render(k, l):
+        d, wp = pyr[k][0][l], pyr[k][1]
+        return (lambda: K.render_ao_level(d, l, wp, cam, par),
+                render_work(d.shape))
+
+    def dma(k):
+        d, wp = pyr[k][0][1], pyr[k][1]
+        return (lambda: K.render_ao_level_dma(d, 1, wp, cam, par),
+                render_work(d.shape))
+
+    def normals(k):
+        z, sl, _, wp = npyr[k]
+
+        def fn():
+            for l in range(1, 5):
+                K.render_ao_level_normals(z[l], l, wp, cam, pn,
+                                          slopes_ds=sl[l])
+        works = [render_work(z[l].shape, planes=2) for l in range(1, 5)]
+        return fn, tuple(map(sum, zip(*works)))
+
+    def fused(k, levels):
+        (z, wp), c = pyr[k], chains[k]
+        hw = {"1080p": (1080, 1920), "4K": (2160, 3840),
+              "8K": (4320, 7680)}[k]
+
+        def fn():
+            for l in levels:
+                K.fused_render_upsample_step(z[l], c[l], z[l - 1], l, wp,
+                                             cam, par,
+                                             crop_hw=hw if l == 1 else None)
+        works = [chain_work(z[l].shape, *(hw if l == 1 else
+                                          tuple(z[l - 1].shape)),
+                            npairs=34) for l in levels]
+        return fn, tuple(map(sum, zip(*works)))
+
+    cases = {
+        ("render", "1080p level 4"): render("1080p", 4),
+        ("render", "4K level 1"): render("4K", 1),
+        ("render", "8K level 1"): render("8K", 1),
+        ("dma", "4K level 1"): dma("4K"),
+        ("dma", "8K level 1"): dma("8K"),
+        ("render_normals", "1080p levels 1-4 x4"): normals("1080p x4"),
+        ("render_normals", "4K levels 1-4"): normals("4K"),
+        ("fused", "1080p steps 3->2, 2->1, 1->0"): fused("1080p", (3, 2, 1)),
+        ("fused", "4K step 1->0"): fused("4K", (1,)),
+        ("fused", "8K step 1->0"): fused("8K", (1,)),
+    }
+    # end to end: the main path and the ULTRA path, four frames a call
+    from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
+                                             render_frame)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import CameraParams
+
+    cam_hw = CameraParams()
+    frames = torch.stack([torch.as_tensor(F.to_hardware_depth(
+        F.spheres_on_plane(1080, 1920, cam_hw, seed=s), cam_hw),
+        dtype=torch.float32, device=dev) for s in range(4)])
+    zn = [F.spheres_on_plane(1080, 1920, cam, seed=s, with_normals=True)
+          for s in range(4)]
+    z4, n4 = (torch.as_tensor(np.stack([x[i] for x in zn]),
+                              dtype=torch.float32, device=dev)
+              for i in (0, 1))
+    ultra = AmbientOcclusionEngine(cam, preset("ULTRA"))
+    # (their prologues copy host scalars, which a graph cannot capture:
+    # device time from the profiler instead)
+    cases[("render_frame", "HIGH auto 1080p, 4 frames a call")] = (
+        lambda: render_frame(frames, cam_hw, par, impl="auto"), "profile")
+    cases[("AmbientOcclusionEngine", "ULTRA 1080p, 4 frames a call")] = (
+        lambda: ultra.render(z4, normals=n4), "profile")
+    out = {}
+    order = (["parent"] if "parent" in libs else []) + ["new", "new"] + \
+        (["parent"] if "parent" in libs else [])
+    for (kern, shape), (fn, work) in cases.items():
+        ms = {}
+        for which in order:
+            with kernel_library(libs[which]):
+                ms.setdefault(which, []).append(
+                    device_profile(fn)[0] if work == "profile" else
+                    cuda_graph_ms(fn))
+        new = sum(ms["new"]) / 2
+        line = (f"  {kern} {shape}: new {ms['new'][0]:.4f} / "
+                f"{ms['new'][1]:.4f} ms")
+        if "parent" in ms:
+            old = sum(ms["parent"]) / 2
+            line += (f", parent {ms['parent'][0]:.4f} / {ms['parent'][1]:.4f}"
+                     f" ms, speedup {old / new:.2f}x")
+        if work != "profile":
+            b_ms, b_by = bound(*work)
+            line += (f", bound {b_ms:.4f} ms ({b_by}), roofline share "
+                     f"{b_ms / new:.1%}")
+        line += f" [{card}]"
+        print(line, flush=True)
+        out[(kern, shape)] = ms
+    # where the time goes: device time by kernel, and the idle share
+    for label, fn in (("HIGH auto 1080p, 1 frame a call",
+                       lambda: render_frame(frames[:1], cam_hw, par)),
+                      ("HIGH auto 1080p, 4 frames a call",
+                       lambda: render_frame(frames, cam_hw, par)),
+                      ("ULTRA 1080p, 4 frames a call",
+                       lambda: ultra.render(z4, normals=n4))):
+        device_breakdown(label, fn, card)
+    del pyr, chains, npyr, frames, z4, n4
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_profile(fn, calls=20):
+    """(device ms per call, {kernel: device ms over the calls}, kernels per
+    call): the kernels' own time, by torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void |\(.*$|^(?:at::native::|tpuao::)", "",
+                          name)[:60]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n += 1
+    return sum(by.values()) / calls, by, n / calls
+
+
+def device_breakdown(label, fn, card, calls=20):
+    """Device ms per call by kernel against the call's event time
+    (``cuda_time_ms``): the device's idle share of a call is
+    1 - device / event."""
+    from tpuao_torch.utils.timing import cuda_time_ms
+
+    wall = cuda_time_ms(fn)
+    device, by, n = device_profile(fn, calls)
+    print(f"  {label}: event {wall:.4f} ms, device {device:.4f} ms "
+          f"({n:.0f} kernels), idle share {1 - device / wall:.2f} [{card}]")
+    for name, t in sorted(by.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {t / calls:.4f} ms ({t / calls / device:.0%}) {name}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an older tree's tpuao_torch/csrc, whose kernels "
+                    f"phase 12 times beside these (default: {PARENT_CSRC} "
+                    "where it exists)")
+    args = ap.parse_args(argv)
+    parent = args.parent
+    if parent is None and pathlib.Path(PARENT_CSRC).is_dir():
+        parent = PARENT_CSRC
+
     import torch
 
     if not torch.cuda.is_available():
@@ -708,9 +1074,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    for k in ptxas_report(lib.with_suffix(".log").read_text()):
+        print(f"  {k['name']}: {k['regs']} registers, {k['smem']} B shared, "
+              f"{k['spill']} B spilled")
+        tiled = k["name"].startswith(("render_kernel", "fused_step_kernel"))
+        if tiled and k["spill"]:
+            raise RuntimeError(f"{k['name']} spills {k['spill']} bytes")
 
     # 2. card
     card = _card()
@@ -736,7 +1105,7 @@ def main() -> int:
             got = K.render_ao_level(pyr[l], l, wp, cam, p)
             want = K.render_ao_level_plain(pyr[l], l, wp, cam, p)
             chk.close("render", f"render l{l} {tuple(pyr[l].shape)} "
-                      f"exhaustive={ex}", got, want)
+                      f"exhaustive={ex}", got, want, tol=TOL_EXACT)
             aos[(l, ex)] = want
     a4, a3 = aos[(4, True)], aos[(3, True)]
     for lo2, blend in ((None, None), (aos[(4, False)], None),
@@ -770,7 +1139,7 @@ def main() -> int:
                            dtype=torch.float32, device=dev)
     chk.close("render", "render 44x64 (rows not a tile multiple)",
               K.render_ao_level(d44, 1, 128, cam, par),
-              K.render_ao_level_plain(d44, 1, 128, cam, par))
+              K.render_ao_level_plain(d44, 1, 128, cam, par), tol=TOL_EXACT)
     chk.close("fused", "fused 44x64 -> 88x128, odd crop (87, 127)",
               K.fused_render_upsample_step(d44, c44, hi44, 1, 128, cam, par,
                                            crop_hw=(87, 127)),
@@ -909,9 +1278,26 @@ def main() -> int:
     ms.update(variant_ms)
     phase_serving(chk, dev, K, F, cam, card)  # asserts its own counts
 
+    # 12: the redesigned kernels beside the parent's, bounds, shares
+    phase_parent(dev, K, P, R, F, cam, card, parent)
+
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
-    # HIGH sequence at resolve_level 0 (phase 8)
+    # HIGH sequence at resolve_level 0 (phase 8); its bound is that of the
+    # work its "ms" timed (phases 5, 9, 10)
+    normals_work = [render_work(pyr[l].shape, planes=2) for l in range(1, 5)]
+    fused_work = [chain_work(pyr[l].shape, *((h0, w0) if l == 1 else
+                                             tuple(pyr[l - 1].shape)),
+                             npairs=34) for l in (3, 2, 1)]
+    work = {
+        "render": render_work(pyr[4].shape),
+        "render_normals": tuple(map(sum, zip(*normals_work))),
+        "upsample": chain_work(pyr[4].shape, *pyr[3].shape),
+        "fused": tuple(map(sum, zip(*fused_work))),
+        "windowed": (h0 * w0 * WINDOWED_OPS, 4 * 6 * h0 * w0),
+        "dma": render_work(pyr[1].shape),
+        "zc": chain_work(pyr[1].shape, h0, w0, npairs=34),
+    }
     meta = {
         "render": ("render_ao_level", "tpuao_torch/csrc/render.cu",
                    "tpuao/ops/pallas_kernels.py:660", main_counts),
@@ -929,10 +1315,15 @@ def main() -> int:
         "zc": ("fused_render_upsample_step_zc", "tpuao_torch/csrc/fused_zc.cu",
                "tpuao/ops/pallas_kernels.py:351", variant_counts),
     }
-    kernels = [{"name": fn, "route": "cuda", "source": src, "replaces": rep,
-                "launches": run[fn], "max_abs_err": chk.worst[key],
-                "ms": ms[key][0], "plain_ms": ms[key][1]}
-               for key, (fn, src, rep, run) in meta.items()]
+    kernels = []
+    for key, (fn, src, rep, run) in meta.items():
+        b_ms, b_by = bound(*work[key])
+        kernels.append({"name": fn, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": run[fn],
+                        "max_abs_err": chk.worst[key], "ms": ms[key][0],
+                        "plain_ms": ms[key][1], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+    print(f"library calls: {NO_LIBRARY}")
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on its path")

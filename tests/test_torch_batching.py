@@ -35,7 +35,8 @@ def _one_torch_thread():
 
 def _render(batch, normals=None, color=None):
     params = PAR.replace(use_normals=True) if normals is not None else PAR
-    return render_frame(batch, CAM, params, normals=normals, color=color)
+    return render_frame(batch, CAM, params, normals=normals, color=color,
+                        device="cpu")
 
 
 def _one(z, **kw):

@@ -44,7 +44,7 @@ def _serve(srv):
 def servers():
     """{"torch": (base, server), "jax": (base, server)}, batch_size=2."""
     out = {name: (_serve(srv), srv) for name, srv in (
-        ("torch", S.make_server(0, batch_size=2)),
+        ("torch", S.make_server(0, batch_size=2, device="cpu")),
         ("jax", JS.make_server(0, batch_size=2)))}
     yield out
     for _, srv in out.values():
@@ -67,15 +67,17 @@ def test_render_matches_the_port_locally(servers, scene, which):
     for kw, params in (({}, AOParams()), ({"strength": 2.0},
                                           AOParams(strength=2.0))):
         np.testing.assert_allclose(c.render(z, **kw),
-                                   render_frame(z, CAM, params).numpy(),
+                                   render_frame(z, CAM, params,
+                                                device="cpu").numpy(),
                                    atol=TOL)
     np.testing.assert_allclose(
         c.render(z, normals=nrm),
         render_frame(z, CAM, AOParams(use_normals=True),
-                     normals=nrm).numpy(), atol=TOL)
+                     normals=nrm, device="cpu").numpy(), atol=TOL)
     rgb = c.render(z, color=col)  # sends buffers=depth,color
     assert rgb.shape == (H, W, 3)
-    np.testing.assert_allclose(rgb, render_frame(z, CAM, color=col).numpy(),
+    np.testing.assert_allclose(rgb, render_frame(z, CAM, color=col,
+                                                 device="cpu").numpy(),
                                atol=TOL)
     png = c.render(z, out="png")
     assert isinstance(png, bytes) and png[:8] == b"\x89PNG\r\n\x1a\n"
@@ -181,7 +183,8 @@ def test_transport_retry(servers, scene, monkeypatch):
 
 @pytest.mark.parametrize("which", ["torch", "jax"])
 def test_wait_ready_healthy_stats_config(scene, which):
-    srv = (S if which == "torch" else JS).make_server(0)
+    srv = (S.make_server(0, device="cpu") if which == "torch"
+           else JS.make_server(0))
     base = _serve(srv)
     try:
         c = AOClient(base)
@@ -223,7 +226,7 @@ def test_temporal_session_on_both_servers(servers, rl):
     for a, b in zip(outs["torch"], outs["jax"]):
         np.testing.assert_allclose(a, b, atol=TOL)
     cam70 = CAM.replace(tan_half_fov_h=float(np.tan(np.radians(35.0))))
-    ref = TemporalAOEngine(cam70, resolve_level=rl)
+    ref = TemporalAOEngine(cam70, resolve_level=rl, device="cpu")
     for got, z, v in zip(outs["torch"], frames, vs):
         np.testing.assert_array_equal(got, ref.render(z, view=v).numpy())
 
@@ -240,7 +243,7 @@ def test_session_mv_on_both_servers(servers):
             got[which] = (ses.render(z0), ses.render(z1, mv=mv))
     for a, b in zip(got["torch"], got["jax"]):
         np.testing.assert_allclose(a, b, atol=TOL)
-    ref = TemporalAOEngine(CAM)
+    ref = TemporalAOEngine(CAM, device="cpu")
     ref.render(z0)
     np.testing.assert_array_equal(got["torch"][1],
                                   ref.render(z1, motion=mv).numpy())
@@ -271,7 +274,7 @@ def test_session_close_swallows_http_errors():
 
 
 def test_full_session_table_is_a_runtime_error():
-    srv = S.make_server(0)
+    srv = S.make_server(0, device="cpu")
     srv.max_sessions = 0
     base = _serve(srv)
     try:

@@ -81,7 +81,7 @@ def test_presets_equal_tpuao():
 @pytest.mark.parametrize("name", list(JPS.PRESETS))
 def test_preset_renders_equal_tpuao(name):
     z, n = scene(64, 64, with_normals=True)
-    eng = AmbientOcclusionEngine(CAM, preset(name))
+    eng = AmbientOcclusionEngine(CAM, preset(name), device="cpu")
     got = eng.render(z, normals=n).numpy()
     want = np.asarray(JPL.render_frame(z, JCAM, JPS.preset(name), normals=n,
                                        impl="jnp"))
@@ -95,7 +95,7 @@ def test_preset_renders_equal_tpuao(name):
 
 def test_engine_api_matches_tpuao():
     z = scene()
-    eng = AmbientOcclusionEngine(CAM, impl="jnp")
+    eng = AmbientOcclusionEngine(CAM, impl="jnp", device="cpu")
     jeng = JPL.AmbientOcclusionEngine(JCAM, impl="jnp")
     ao = eng.render(z).numpy()
     np.testing.assert_allclose(ao, np.asarray(jeng.render(z)), atol=TOL)
@@ -117,13 +117,13 @@ def test_engine_api_matches_tpuao():
     lit = eng.render(z, color=color).numpy()
     np.testing.assert_allclose(lit[..., 0], eng.render(z).numpy(), atol=1e-6)
     with pytest.raises(ValueError, match="impl"):
-        AmbientOcclusionEngine(CAM, impl="xla")
+        AmbientOcclusionEngine(CAM, impl="xla", device="cpu")
 
 
 def test_engine_debug_grayscale_and_out_dtype():
     z = scene(64, 64)
     eng = AmbientOcclusionEngine(CAM, impl="jnp", debug=True,
-                                 out_dtype="uint8")
+                                 out_dtype="uint8", device="cpu")
     jeng = JPL.AmbientOcclusionEngine(JCAM, impl="jnp", debug=True,
                                       out_dtype="uint8")
     gray = np.ones((64, 64), np.float32)
@@ -136,13 +136,15 @@ def test_engine_debug_grayscale_and_out_dtype():
     assert tuple(view3.shape) == (64, 64, 3)
     assert set(dbg["ao_levels"]) == {1, 2, 3, 4}
     # no colour: the debug flag has nothing to replace
-    plain = AmbientOcclusionEngine(CAM, out_dtype="uint8").render(z)
+    plain = AmbientOcclusionEngine(CAM, out_dtype="uint8",
+                                   device="cpu").render(z)
     assert plain.dtype == torch.uint8 and tuple(plain.shape) == (64, 64)
 
 
 def test_engine_out_dtype():
     z = scene(96, 128, seed=2)
-    out = AmbientOcclusionEngine(CAM, out_dtype="uint8").render(z)
+    out = AmbientOcclusionEngine(CAM, out_dtype="uint8",
+                                 device="cpu").render(z)
     want = np.asarray(JPL.AmbientOcclusionEngine(
         JCAM, out_dtype="uint8").render(z))
     assert out.dtype == torch.uint8 and tuple(out.shape) == (96, 128)
@@ -153,7 +155,7 @@ def test_engine_out_dtype():
 def test_engine_config_roundtrip(tmp_path, writer):
     path = str(tmp_path / "eng.json")
     if writer == "port":
-        eng = AmbientOcclusionEngine(CAM)
+        eng = AmbientOcclusionEngine(CAM, device="cpu")
         eng.strength = 3.0
         eng.blur_tolerance = -2.0
         assert eng.save_config(path) == path
@@ -162,7 +164,8 @@ def test_engine_config_roundtrip(tmp_path, writer):
         jeng.strength = 3.0
         jeng.blur_tolerance = -2.0
         jeng.save_config(path)
-    eng2 = AmbientOcclusionEngine.from_config(path, out_dtype="uint8")
+    eng2 = AmbientOcclusionEngine.from_config(path, out_dtype="uint8",
+                                              device="cpu")
     jeng2 = JPL.AmbientOcclusionEngine.from_config(path, out_dtype="uint8")
     assert eng2.strength == 3.0 and eng2.blur_tolerance == -2.0
     assert eng2.camera.depth_mode == "linear"

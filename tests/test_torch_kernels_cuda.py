@@ -346,6 +346,58 @@ def test_render_kernels_round_like_their_plain_versions(dev):
     close(K.fused_render_upsample_step_zc(*args), want, 1.1e-6)
 
 
+TILED_SIZES = [(37, 50), (44, 64), (4, 4), (65, 129)]  # uneven, minimal,
+# and straddling the render tile (8 or 16 rows x 64 columns) and the fused
+# tile (5 or 13 x 61 lo texels)
+
+
+@pytest.mark.parametrize("h,w", TILED_SIZES)
+def test_tiled_render_all_modes_bit_equal_to_plain(dev, h, w):
+    """The shared-memory tiled render, in its three modes, at batch 3 and
+    one frame (the two take different texels-a-thread paths), equals its
+    plain version bit for bit, and the DMA render equals it bit for bit."""
+    rng = np.random.default_rng(30)
+    z = uniform(dev, (3, h, w), 0.05, 1.0, 31)
+    nrm = torch.as_tensor(rng.normal(size=(3, 3, h, w)), dtype=torch.float32,
+                          device=dev)
+    nrm[:, 2] = nrm[:, 2].abs() + 0.1
+    gx, gy = (torch.as_tensor(rng.normal(size=(3, h, w)) * 0.02,
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    for ex in (True, False):
+        par = AOParams(exhaustive=ex, strength=1.3)
+        got = K.render_ao_level(z, 1, 4 * w, CAM, par)
+        close(got, K.render_ao_level_plain(z, 1, 4 * w, CAM, par), 0.0)
+        close(K.render_ao_level_dma(z, 1, 4 * w, CAM, par), got, 0.0)
+        close(K.render_ao_level(z[1], 1, 4 * w, CAM, par), got[1], 0.0)
+        pn = par.replace(use_normals=True)
+        for l in (1, 3):
+            for kw in ({"normals_ds": nrm}, {"slopes_ds": (gx, gy)}):
+                got = K.render_ao_level_normals(z, l, 4 * w, CAM, pn, **kw)
+                close(got, K.render_ao_level_normals_plain(
+                    z, l, 4 * w, CAM, pn, **kw), 0.0)
+
+
+@pytest.mark.parametrize("lh,lw", TILED_SIZES)
+def test_tiled_fused_step_against_plain_and_zero_copy(dev, lh, lw):
+    """The tiled fused step at batch 3 and one frame, uncropped and with
+    an odd crop: within 3e-7 of its plain version (the chain stages'
+    rounding), bit-equal to the zero-copy step, and batch members equal to
+    single frames."""
+    ds = uniform(dev, (3, lh, lw), 0.2, 0.8, 32)
+    c1 = uniform(dev, (3, lh, lw), 0.3, 1.0, 33)
+    hi = uniform(dev, (3, 2 * lh, 2 * lw), 0.2, 0.8, 34)
+    for crop in (None, (2 * lh - 1, 2 * lw - 1)):
+        args = (ds, c1, hi, 1, 4 * lw, CAM, AOParams())
+        got = K.fused_render_upsample_step(*args, crop_hw=crop)
+        close(got, K.fused_render_upsample_step_plain(*args, crop_hw=crop),
+              3e-7)
+        close(K.fused_render_upsample_step_zc(*args, crop_hw=crop), got, 0.0)
+        one = K.fused_render_upsample_step(ds[2], c1[2], hi[2], 1, 4 * lw,
+                                           CAM, AOParams(), crop_hw=crop)
+        close(one, got[2], 0.0)
+
+
 def test_variants_raise_on_what_the_kernels_do_not_take(dev):
     z = uniform(dev, (64, 96), 0.2, 0.8, 24)
     hi = uniform(dev, (128, 192), 0.2, 0.8, 25)

@@ -216,7 +216,7 @@ def test_render_frame_normals_matches_tpuao_and_golden(layout):
                                  normals=n)
     for impl in TPL.IMPLS:
         got = render_frame(z, CAM, AOParams(use_normals=True), normals=nn,
-                           impl=impl).numpy()
+                           impl=impl, device="cpu").numpy()
         np.testing.assert_allclose(got, want, atol=TOL)
         np.testing.assert_allclose(got, gold, atol=GTOL)
 
@@ -231,7 +231,7 @@ def test_render_frame_normals_matches_tpuao_pallas():
                                        impl="pallas"))
     for impl in TPL.IMPLS:
         got = render_frame(z, CAM, AOParams(**par), normals=n,
-                           impl=impl).numpy()
+                           impl=impl, device="cpu").numpy()
         np.testing.assert_allclose(got, want, atol=TOL)
 
 
@@ -244,10 +244,12 @@ def test_render_frame_normals_odd_size_and_batch():
         zb, JCAM, JAOParams(use_normals=True, hierarchy_depth=3), normals=nb,
         impl="jnp"))
     for impl in ("auto", "pallas"):
-        got = render_frame(zb, CAM, par, normals=nb, impl=impl).numpy()
+        got = render_frame(zb, CAM, par, normals=nb, impl=impl,
+                           device="cpu").numpy()
         assert got.shape == (2, 100, 150)
         np.testing.assert_allclose(got, want, atol=TOL)
-    one = render_frame(z2, CAM, par, normals=np.moveaxis(n2, -1, -3))
+    one = render_frame(z2, CAM, par, normals=np.moveaxis(n2, -1, -3),
+                       device="cpu")
     np.testing.assert_allclose(one.numpy(), want[1], atol=TOL)
 
 
@@ -255,7 +257,7 @@ def test_render_frame_normals_debug_levels():
     z, n = scene(64, 96)
     for impl in ("auto", "pallas"):
         _, dbg = render_frame(z, CAM, AOParams(use_normals=True), normals=n,
-                              impl=impl, debug_outputs=True)
+                              impl=impl, debug_outputs=True, device="cpu")
         # no fused step with normals: every level renders
         assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
 
@@ -264,7 +266,7 @@ def test_normals_tensor_on_another_device_raises():
     z, n = scene(64, 64)
     with pytest.raises(ValueError, match="device"):
         render_frame(t32(z), CAM, AOParams(use_normals=True),
-                     normals=t32(n).to("meta"))
+                     normals=t32(n).to("meta"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +275,9 @@ def test_normals_tensor_on_another_device_raises():
 
 def test_normals_path_runs_and_differs():
     z, n = scene(128, 192, seed=5, n_spheres=3)
-    ao0 = render_frame(z, CAM, AOParams()).numpy()
-    ao1 = render_frame(z, CAM, AOParams(use_normals=True), normals=n).numpy()
+    ao0 = render_frame(z, CAM, AOParams(), device="cpu").numpy()
+    ao1 = render_frame(z, CAM, AOParams(use_normals=True), normals=n,
+                       device="cpu").numpy()
     assert ao1.shape == ao0.shape
     assert np.all((ao1 >= 0) & (ao1 <= 1))
     assert not np.allclose(ao0, ao1)
@@ -282,7 +285,8 @@ def test_normals_path_runs_and_differs():
 
 def test_normals_grazing_plane_no_horizon_band():
     z, n = scene(192, 256, seed=0, n_spheres=0)
-    ao = render_frame(z, CAM, AOParams(use_normals=True), normals=n).numpy()
+    ao = render_frame(z, CAM, AOParams(use_normals=True), normals=n,
+                      device="cpu").numpy()
     assert ao.min() > 0.75, ao.min()
     assert ao.mean() > 0.97
 
@@ -291,6 +295,7 @@ def test_normals_flat_wall_unchanged():
     z = np.full((64, 96), 0.4, np.float32)
     n = np.zeros((64, 96, 3), np.float32)
     n[..., 2] = 1.0
-    ao0 = render_frame(z, CAM, AOParams()).numpy()
-    ao1 = render_frame(z, CAM, AOParams(use_normals=True), normals=n).numpy()
+    ao0 = render_frame(z, CAM, AOParams(), device="cpu").numpy()
+    ao1 = render_frame(z, CAM, AOParams(use_normals=True), normals=n,
+                       device="cpu").numpy()
     np.testing.assert_array_equal(ao0, ao1)

@@ -8,6 +8,7 @@ equal to the JAX package's, and check that importing the port loads no JAX.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -18,10 +19,12 @@ import torch
 
 import tpuao.params as JP
 from tpuao import render_frame as jax_render_frame
+from tpuao.ops.render import _pair_constants as jax_pair_constants
 from tpuao.utils import fixtures as JF
 
 import tpuao_torch.params as TP
 from tpuao_torch import render_frame
+from tpuao_torch.ops import kernels as K
 from tpuao_torch.utils import fixtures as TF
 
 REPO = Path(__file__).resolve().parent.parent
@@ -156,7 +159,7 @@ def test_from_tpuao_gives_the_same_frame():
     hw = JF.to_hardware_depth(z, JP.GoldenCameraParams(
         near=0.2, far=80.0, reversed_z=False)).astype(np.float32)
     want = np.asarray(jax_render_frame(hw, jc, ja, impl="jnp"))
-    got = render_frame(hw, tc, ta).numpy()
+    got = render_frame(hw, tc, ta, device="cpu").numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
@@ -231,7 +234,121 @@ def test_import_loads_no_jax():
 
 
 def test_numpy_input_defaults_to_cpu():
+    """NumPy input runs on the CPU when the caller asks for it, and a CPU
+    tensor stays there whatever ``device`` says (the default device is
+    the card: ``test_numpy_input_defaults_to_the_card``)."""
     z = TF.spheres_on_plane(64, 64, seed=1)
-    out = render_frame(z, TP.CameraParams(depth_mode="linear"))
+    cam = TP.CameraParams(depth_mode="linear")
+    out = render_frame(z, cam, device="cpu")
     assert isinstance(out, torch.Tensor)
     assert out.device == torch.device("cpu") and out.dtype == torch.float32
+    assert render_frame(torch.as_tensor(z), cam).device == out.device
+
+
+def test_numpy_input_defaults_to_the_card():
+    """Every entry point puts NumPy input on the card unless ``device=``
+    says otherwise; with no card it raises, naming the device and the
+    ``device="cpu"`` escape, and never runs on the CPU unasked."""
+    from tpuao_torch import serving as S
+    from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
+                                             TemporalAOEngine,
+                                             render_frame_temporal,
+                                             render_sequence_temporal,
+                                             single_scale_ao)
+    from tpuao_torch.parallel.sharding import render_views
+
+    z = TF.spheres_on_plane(32, 48, seed=1)
+    cam = TP.CameraParams(depth_mode="linear")
+    calls = {
+        "render_frame": lambda: render_frame(z, cam),
+        "single_scale_ao": lambda: single_scale_ao(z, cam),
+        "AmbientOcclusionEngine": lambda: AmbientOcclusionEngine(cam).render(
+            z),
+        "TemporalAOEngine": lambda: TemporalAOEngine(cam).render(z),
+        "render_frame_temporal": lambda: render_frame_temporal(z, None,
+                                                               cam)[0],
+        "render_sequence_temporal": lambda: render_sequence_temporal(
+            np.stack([z, z]), cam),
+        "render_views": lambda: render_views(np.stack([z, z]), cam),
+    }
+    assert S.build_parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        for name, call in calls.items():
+            assert call().device.type == "cuda", name
+        srv = S.make_server(0)
+        try:
+            assert srv.device.type == "cuda"
+        finally:
+            srv.server_close()
+        return
+    for name, call in list(calls.items()) + [
+            ("make_server", lambda: S.make_server(0))]:
+        with pytest.raises(RuntimeError,
+                           match='device cuda: no CUDA device.*device="cpu"'):
+            call()
+
+
+# The compile-time pair offsets of the CUDA kernels: csrc/common.cuh spells
+# the (dx, dy) of the exhaustive and sparse tables out as constexpr arrays,
+# which the tiled kernels (render.cu, fused.cu) read at compile time; the
+# host table the wrappers pass (ops/kernels.pair_table) still carries them
+# and the kernels refuse one that differs.  These tests parse the arrays
+# out of the source and hold them equal to pair_table and to the JAX
+# package's _pair_constants, so the two cannot drift.
+
+COMMON = (Path(__file__).resolve().parent.parent / "tpuao_torch" / "csrc" /
+          "common.cuh")
+
+
+def constexpr_table(name: str) -> list[tuple[int, int]]:
+    """The ``constexpr int <name>[N][2] = {...};`` array of common.cuh as
+    a list of (dx, dy), checked against its declared length N."""
+    src = COMMON.read_text()
+    m = re.search(r"constexpr\s+int\s+" + name +
+                  r"\s*\[\s*(\d+)\s*\]\s*\[\s*2\s*\]\s*=\s*\{(.*?)\};", src,
+                  re.S)
+    assert m, f"{name} not found in {COMMON}"
+    pairs = [(int(a), int(b)) for a, b in
+             re.findall(r"\{\s*(-?\d+)\s*,\s*(-?\d+)\s*\}", m.group(2))]
+    assert len(pairs) == int(m.group(1))
+    return pairs
+
+
+@pytest.mark.parametrize("exhaustive,name,n", [
+    (True, "kExhaustivePairs", 34), (False, "kSparsePairs", 10)])
+def test_constexpr_offsets_equal_the_pair_tables(exhaustive, name, n):
+    offsets = constexpr_table(name)
+    assert len(offsets) == n
+    for radius_coef in (0.5, 3.0):  # the offsets do not depend on the level
+        table = K.pair_table(exhaustive, radius_coef)
+        assert list(zip(table["dx"].tolist(), table["dy"].tolist())) == \
+            offsets
+    jax = [(dx, dy) for dx, dy, _, _ in
+           jax_pair_constants(JP.AOParams(exhaustive=exhaustive))]
+    assert jax == offsets
+
+
+def test_the_sparse_offsets_are_a_subset_and_taps_stay_in_the_halo():
+    dense = set(constexpr_table("kExhaustivePairs"))
+    sparse = constexpr_table("kSparsePairs")
+    assert set(sparse) <= dense
+    assert len(set(sparse)) == len(sparse) and len(dense) == 34
+    # every tap (and its mirror) within the 16-texel halo the kernels stage
+    for dx, dy in dense:
+        assert max(abs(dx), abs(dy)) <= 16 and dx % 4 == 0 and dy % 4 == 0
+        assert (-dx, -dy) not in dense  # one entry per mirrored pair
+
+
+def test_pair_table_layout_matches_the_kernels_struct():
+    # tpuao::Pair is {int dx; int dy; float inv_r; float half_w;}
+    table = K.pair_table(True, 1.0)
+    assert table.dtype.itemsize == 16
+    assert [table.dtype.fields[f][1] for f in ("dx", "dy", "inv_r",
+                                               "half_w")] == [0, 4, 8, 12]
+    assert table.dtype["dx"] == np.int32 and table.dtype["inv_r"] == \
+        np.float32
+    assert not table.flags.writeable
+    # the plain version's constants: the same (dx, dy) in the same order
+    plain = [(dx, dy) for dx, dy, _, _ in
+             K.R._pair_constants(TP.AOParams(exhaustive=True))]
+    assert plain == list(zip(table["dx"].tolist(), table["dy"].tolist()))

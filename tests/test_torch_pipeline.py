@@ -74,7 +74,8 @@ def test_render_frame_matches_tpuao(case):
     z, cam, jcam, _ = scene(c["h"], c["w"], hardware=c.get("hardware", False),
                             batch=c.get("batch"))
     par = c.get("par", {})
-    got = {impl: render_frame(z, cam, AOParams(**par), impl=impl).numpy()
+    got = {impl: render_frame(z, cam, AOParams(**par), impl=impl,
+                              device="cpu").numpy()
            for impl in TPL.IMPLS}
     want_jnp = np.asarray(JPL.render_frame(z, jcam, JAOParams(**par),
                                            impl="jnp"))
@@ -91,7 +92,7 @@ def test_render_frame_matches_tpuao(case):
 def test_render_frame_matches_golden(hardware):
     h, w = (128, 192) if not hardware else (100, 150)
     z, cam, _, gcam = scene(h, w, seed=11, hardware=hardware)
-    got = render_frame(z, cam, AOParams()).numpy()
+    got = render_frame(z, cam, AOParams(), device="cpu").numpy()
     gold = render_frame_golden(z, gcam, GoldenAOParams())
     np.testing.assert_allclose(got, gold, atol=GTOL)
     assert got.min() < 0.95  # the scene really occludes
@@ -99,7 +100,8 @@ def test_render_frame_matches_golden(hardware):
 
 def test_blur_off_matches_tpuao_and_golden():
     z, cam, jcam, gcam = scene(100, 150)
-    got = render_frame(z, cam, AOParams(enable_blur=False)).numpy()
+    got = render_frame(z, cam, AOParams(enable_blur=False),
+                       device="cpu").numpy()
     want = np.asarray(JPL.render_frame(z, jcam, JAOParams(enable_blur=False),
                                        impl="jnp"))
     np.testing.assert_allclose(got, want, atol=TOL)
@@ -109,7 +111,8 @@ def test_blur_off_matches_tpuao_and_golden():
 
 def test_out_dtype_uint8_matches_tpuao():
     z, cam, jcam, _ = scene(64, 128, batch=2)
-    got = render_frame(z, cam, AOParams(), out_dtype="uint8").numpy()
+    got = render_frame(z, cam, AOParams(), out_dtype="uint8",
+                       device="cpu").numpy()
     want = np.asarray(JPL.render_frame(z, jcam, JAOParams(), impl="jnp",
                                        out_dtype="uint8"))
     assert got.dtype == np.uint8
@@ -120,7 +123,7 @@ def test_out_dtype_uint8_matches_tpuao():
 
 def test_out_dtype_bfloat16_matches_tpuao():
     z, cam, jcam, _ = scene(64, 128)
-    got = render_frame(z, cam, AOParams(), out_dtype="bfloat16")
+    got = render_frame(z, cam, AOParams(), out_dtype="bfloat16", device="cpu")
     assert got.dtype == torch.bfloat16
     want = np.asarray(JPL.render_frame(z, jcam, JAOParams(), impl="jnp",
                                        out_dtype="bfloat16")).astype(
@@ -128,7 +131,7 @@ def test_out_dtype_bfloat16_matches_tpuao():
     # one bfloat16 step in [0.5, 1) is 2**-8; float32 noise can flip it
     np.testing.assert_allclose(got.float().numpy(), want, atol=2.0 ** -8)
     with pytest.raises(ValueError, match="out_dtype"):
-        render_frame(z, cam, AOParams(), out_dtype="float16")
+        render_frame(z, cam, AOParams(), out_dtype="float16", device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["float32", "uint8"])
@@ -141,7 +144,7 @@ def test_colour_composite_matches_tpuao(kind):
         color = rng.uniform(size=(64, 128, 3)).astype(np.float32)
     for out_dtype in ("float32", "uint8"):
         got = render_frame(z, cam, AOParams(), color=color,
-                           out_dtype=out_dtype).numpy()
+                           out_dtype=out_dtype, device="cpu").numpy()
         want = np.asarray(JPL.render_frame(z, jcam, JAOParams(), color=color,
                                            impl="jnp", out_dtype=out_dtype))
         assert got.dtype == want.dtype and got.shape == want.shape
@@ -154,7 +157,8 @@ def test_colour_composite_matches_tpuao(kind):
 @pytest.mark.parametrize("hw", [(100, 150), (128, 192)])
 def test_single_scale_ao_matches_tpuao(hw):
     z, cam, jcam, _ = scene(*hw, hardware=True)
-    got = TPL.single_scale_ao(z, cam, AOParams(strength=1.5)).numpy()
+    got = TPL.single_scale_ao(z, cam, AOParams(strength=1.5),
+                              device="cpu").numpy()
     want = np.asarray(JPL.single_scale_ao(z, jcam, JAOParams(strength=1.5),
                                           impl="pallas"))
     assert got.shape == (-(-hw[0] // 2), -(-hw[1] // 2))
@@ -163,24 +167,28 @@ def test_single_scale_ao_matches_tpuao(hw):
 
 def test_flat_plane_gives_one():
     out = render_frame(np.full((64, 128), 0.3, np.float32),
-                       CameraParams(depth_mode="linear"), AOParams())
+                       CameraParams(depth_mode="linear"), AOParams(),
+                       device="cpu")
     np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-6)
 
 
 def test_debug_outputs():
     z, cam, _, _ = scene(64, 128)
-    out, dbg = render_frame(z, cam, AOParams(), debug_outputs=True)
+    out, dbg = render_frame(z, cam, AOParams(), debug_outputs=True,
+                            device="cpu")
     assert set(dbg) >= {"linear_z", "ao_levels", "pyramid", "combined_0"}
     assert list(dbg["ao_levels"]) == [4]  # auto: only the coarsest renders
     np.testing.assert_array_equal(dbg["combined_0"].numpy(), out.numpy())
-    _, dbg = render_frame(z, cam, AOParams(), debug_outputs=True, impl="jnp")
+    _, dbg = render_frame(z, cam, AOParams(), debug_outputs=True, impl="jnp",
+                          device="cpu")
     assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
 
 
 def test_debug_outputs_without_blur_hold_every_level(monkeypatch):
     z, cam, jcam, _ = scene(64, 128)
     par = dict(enable_blur=False)
-    out, dbg = render_frame(z, cam, AOParams(**par), debug_outputs=True)
+    out, dbg = render_frame(z, cam, AOParams(**par), debug_outputs=True,
+                            device="cpu")
     jout, jdbg = JPL.render_frame(z, jcam, JAOParams(**par),
                                   debug_outputs=True, impl="jnp")
     assert sorted(dbg["ao_levels"]) == sorted(jdbg["ao_levels"]) == [1, 2,
@@ -195,19 +203,21 @@ def test_debug_outputs_without_blur_hold_every_level(monkeypatch):
     monkeypatch.setattr(K, "render_ao_level",
                         lambda *a, **k: calls.append(a[1]) or real(*a, **k))
     np.testing.assert_array_equal(
-        render_frame(z, cam, AOParams(**par)).numpy(), out.numpy())
+        render_frame(z, cam, AOParams(**par),
+                     device="cpu").numpy(), out.numpy())
     assert calls == [1]
 
 
 def test_bad_impl_raises_and_normals_render():
     z, cam, _, _ = scene(64, 64)
     with pytest.raises(ValueError, match="impl"):
-        render_frame(z, cam, AOParams(), impl="xla")
+        render_frame(z, cam, AOParams(), impl="xla", device="cpu")
     n = np.zeros((64, 64, 3), np.float32)
     n[..., 2] = 1.0  # a camera-facing wall: no tangent offset
     np.testing.assert_allclose(
-        render_frame(z, cam, AOParams(use_normals=True), normals=n).numpy(),
-        render_frame(z, cam, AOParams()).numpy(), atol=1e-7)
+        render_frame(z, cam, AOParams(use_normals=True), normals=n,
+                     device="cpu").numpy(),
+        render_frame(z, cam, AOParams(), device="cpu").numpy(), atol=1e-7)
 
 
 def test_tensor_input_stays_on_its_device():

@@ -73,7 +73,8 @@ def test_gives_up_after_retries(monkeypatch):
 
 
 def test_wraps_a_real_render():
-    fn = retry_transient(lambda d: render_frame(d, CAM, AOParams()))
+    fn = retry_transient(lambda d: render_frame(d, CAM, AOParams(),
+                                                device="cpu"))
     out = fn(torch.full((64, 64), 0.4))
     np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-5)
     assert fn.__wrapped__ is not None

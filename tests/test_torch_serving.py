@@ -61,8 +61,8 @@ def stop(srv):
 @pytest.fixture(scope="module")
 def pair():
     """(port base URL, tpuao base URL, port server, tpuao server)."""
-    mine, theirs = S.make_server(0, batch_size=4), JS.make_server(
-        0, batch_size=4)
+    mine = S.make_server(0, batch_size=4, device="cpu")
+    theirs = JS.make_server(0, batch_size=4)
     yield start(mine), start(theirs), mine, theirs
     stop(mine)
     stop(theirs)
@@ -119,18 +119,20 @@ def test_stateless_requests_side_by_side(pair):
         qs = f"strength={1.0 + 0.5 * i}&rejection_falloff={2.0 + i}"
         got = same_ao(*both(pair, qs, dumps_pfm(z)))
         want = render_frame(z, CAM, AOParams(strength=1.0 + 0.5 * i,
-                                             rejection_falloff=2.0 + i))
+                                             rejection_falloff=2.0 + i),
+                            device="cpu")
         np.testing.assert_array_equal(got, want.numpy())
     # camera overrides ride per request
     a, b = both(pair, "fov=80&far=50", dumps_pfm(zs[0]))
     got = same_ao(a, b)
     cam80 = CAM.replace(far=50.0, tan_half_fov_h=math.tan(math.radians(40)))
-    np.testing.assert_array_equal(got, render_frame(zs[0], cam80).numpy())
+    np.testing.assert_array_equal(got, render_frame(zs[0], cam80,
+                                                    device="cpu").numpy())
     # ULTRA: a normals frame flips use_normals
     z, n = scene(7, normals=True)
     got = same_ao(*both(pair, "", dumps_pfm(z) + dumps_pfm(n)))
-    want = AmbientOcclusionEngine(CAM, AOParams(use_normals=True)).render(
-        z, normals=n)
+    want = AmbientOcclusionEngine(CAM, AOParams(use_normals=True),
+                                  device="cpu").render(z, normals=n)
     np.testing.assert_array_equal(got, want.numpy())
     # composite without normals, positional override
     col = np.random.default_rng(3).uniform(0, 1, (H, W, 3)).astype(
@@ -191,7 +193,8 @@ def test_batched_route_side_by_side(pair):
     for i, z in enumerate(zs):
         assert res[i, 0][0] == res[i, 1][0] == 200
         got = same_ao(res[i, 0], res[i, 1])
-        np.testing.assert_array_equal(got, render_frame(z, CAM).numpy())
+        np.testing.assert_array_equal(got, render_frame(z, CAM,
+                                                        device="cpu").numpy())
     for base in pair[:2]:
         st = json.loads(post(base, "", None, method="GET",
                              path="/stats")[1])
@@ -207,7 +210,7 @@ def test_batched_route_side_by_side(pair):
 @pytest.mark.parametrize("rl", [0, 1])
 def test_dolly_session_side_by_side(pair, rl):
     frames = [scene(5, eye=(0.05 * t, 0.0, 0.04 * t)) for t in range(8)]
-    ref = TemporalAOEngine(CAM, resolve_level=rl)
+    ref = TemporalAOEngine(CAM, resolve_level=rl, device="cpu")
     sid = f"dolly{rl}"
     for t, (z, v) in enumerate(zip(frames, views(8))):
         a, b = both(pair, f"session={sid}&resolve_level={rl}&view={vq(v)}",
@@ -238,7 +241,7 @@ def test_mv_session_and_tunables_side_by_side(pair):
     frames = [np.roll(z0, 2 * t, axis=1) for t in range(3)]
     mv = np.zeros((H, W, 3), np.float32)
     mv[..., 1] = -2.0
-    ref = TemporalAOEngine(CAM)
+    ref = TemporalAOEngine(CAM, device="cpu")
     for t, z in enumerate(frames):
         qs, body = "session=mv", dumps_pfm(z)
         if t:
@@ -284,7 +287,7 @@ def test_resumed_level1_session_keeps_its_level(pair):
     theirs = post(pair[1], "session=r1", dumps_pfm(z))
     assert theirs[0] == 400 and b"resolve_level is fixed" in theirs[1]
     assert mine[0] == 200 and mine[2]["X-TPUAO-Session-Frame"] == "1"
-    ref = TemporalAOEngine(CAM, resolve_level=1)
+    ref = TemporalAOEngine(CAM, resolve_level=1, device="cpu")
     ref.render(z)
     np.testing.assert_array_equal(loads_pfm(mine[1]), ref.render(z).numpy())
     # a new session without resolve_level is level 0 in both
@@ -312,7 +315,7 @@ def test_warm_server_warms_the_motion_vector_session(monkeypatch):
 
     monkeypatch.setattr(S, "render_frame_temporal", spy)
     monkeypatch.setattr(JP, "render_frame_temporal", jspy)
-    srv, jsrv = S.make_server(0, batch_size=2), JS.make_server(0)
+    srv, jsrv = S.make_server(0, batch_size=2, device="cpu"), JS.make_server(0)
     try:
         warmed = S.warm_server(srv, (32, 48), ["temporal", "temporal_l1"])
         JS.warm_server(jsrv, (32, 48), ["temporal"])
@@ -330,7 +333,7 @@ def test_warm_server_warms_the_motion_vector_session(monkeypatch):
 
 def test_mesh_and_device_arguments():
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        S.make_server(0, mesh=object())
+        S.make_server(0, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             S.make_server(0, device="cuda")
@@ -357,14 +360,15 @@ def test_retries_transient_faults_and_500s_persistent(monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(S, "render_frame", flaky)
-    srv = S.make_server(0)
+    srv = S.make_server(0, device="cpu")
     base = start(srv)
     try:
         z = scene(2)
         code, body, _ = post(base, "", dumps_pfm(z))
         assert code == 200 and calls["n"] == 2
         np.testing.assert_array_equal(loads_pfm(body),
-                                      render_frame(z, CAM).numpy())
+                                      render_frame(z, CAM,
+                                                   device="cpu").numpy())
 
         def sticky(*a, **kw):
             calls["n"] += 1
@@ -381,7 +385,7 @@ def test_retries_transient_faults_and_500s_persistent(monkeypatch):
         assert (st["ok"], st["errors"], st["direct"]) == (1, 1, 2)
     finally:
         stop(srv)
-    srv2 = S.make_server(0, batch_size=2)
+    srv2 = S.make_server(0, batch_size=2, device="cpu")
     try:
         assert getattr(srv2.batcher._render, "__wrapped__", None) is not None
     finally:
@@ -389,7 +393,7 @@ def test_retries_transient_faults_and_500s_persistent(monkeypatch):
 
 
 def test_failed_session_frames_restore_history(monkeypatch):
-    srv = S.make_server(0)
+    srv = S.make_server(0, device="cpu")
     base = start(srv)
     try:
         z = [scene(s) for s in (1, 2, 3)]
@@ -406,7 +410,7 @@ def test_failed_session_frames_restore_history(monkeypatch):
         monkeypatch.setattr(TP, "render_frame_temporal", real)
         code, body, hdr = post(base, "session=hf", dumps_pfm(z[2]))
         assert code == 200 and hdr["X-TPUAO-Session-Frame"] == "2"
-        eng = TemporalAOEngine(CAM)
+        eng = TemporalAOEngine(CAM, device="cpu")
         eng.render(z[0])
         eng.render(z[1])
         np.testing.assert_array_equal(loads_pfm(body),
@@ -416,7 +420,7 @@ def test_failed_session_frames_restore_history(monkeypatch):
 
 
 def test_session_table_ttl_and_clear_caches():
-    srv = S.make_server(0)
+    srv = S.make_server(0, device="cpu")
     srv.max_sessions = 1
     base = start(srv)
     try:
@@ -444,7 +448,7 @@ def test_session_table_ttl_and_clear_caches():
 
 
 def test_healthz_gates_until_the_first_render():
-    srv = S.make_server(0)
+    srv = S.make_server(0, device="cpu")
     base = start(srv)
     try:
         code, body, _ = post(base, "", None, method="GET", path="/healthz")

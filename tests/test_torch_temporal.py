@@ -289,7 +289,7 @@ def test_frame_and_sequence_match_tpuao(resolve_level):
     par, jpar = AOParams(), JAOParams()
     seq = render_sequence_temporal(depths, CAM, par, TemporalParams(),
                                    motions=motions,
-                                   resolve_level=resolve_level)
+                                   resolve_level=resolve_level, device="cpu")
     jseq = np.asarray(JPL.render_sequence_temporal(
         depths, JCAM, jpar, JTP(), motions=f32(motions),
         resolve_level=resolve_level))
@@ -301,7 +301,8 @@ def test_frame_and_sequence_match_tpuao(resolve_level):
     for t in range(3):
         out, st = render_frame_temporal(depths[t], st, CAM, par,
                                         TemporalParams(), motion=motions[t],
-                                        resolve_level=resolve_level)
+                                        resolve_level=resolve_level,
+                                        device="cpu")
         jout, jst = JPL.render_frame_temporal(
             depths[t], jst, JCAM, jpar, JTP(), motion=f32(motions[t]),
             resolve_level=resolve_level)
@@ -327,7 +328,7 @@ def test_ultra_frame_with_normals_mv_and_impls_match_tpuao():
                 out, st_i = render_frame_temporal(
                     depths[t], st, CAM, preset("ULTRA"), TemporalParams(),
                     motion=motion, normals=normals[t], impl=impl,
-                    resolve_level=resolve_level)
+                    resolve_level=resolve_level, device="cpu")
                 np.testing.assert_allclose(out.numpy(), np.asarray(jout),
                                            atol=TOL)
             st = st_i
@@ -345,7 +346,7 @@ def test_no_blur_odd_dims_and_color_match_tpuao():
                            JAOParams(hierarchy_depth=1), 1)):
         got, st = render_frame_temporal(z, None, CAM, par, TemporalParams(),
                                         motion=motion, color=color,
-                                        resolve_level=rl)
+                                        resolve_level=rl, device="cpu")
         want, jst = JPL.render_frame_temporal(z, None, JCAM, jpar, JTP(),
                                               motion=f32(motion),
                                               color=color, resolve_level=rl)
@@ -357,7 +358,8 @@ def test_dolly_sequence_matches_golden():
     depths, motions, _ = dolly(64, 96, 3, seed=2)
     tp = dict(history_weight=0.7)
     got = render_sequence_temporal(depths, CAM, AOParams(),
-                                   TemporalParams(**tp), motions=motions)
+                                   TemporalParams(**tp), motions=motions,
+                                   device="cpu")
     want = GT.render_sequence_golden(depths.astype(np.float64), GCAM,
                                      GoldenAOParams(),
                                      GoldenTemporalParams(**tp),
@@ -375,13 +377,13 @@ def test_l1_frame_matches_golden_dolly():
             motion=m)
         got, st = render_frame_temporal(depths[t], st, CAM, AOParams(),
                                         TemporalParams(), motion=m,
-                                        resolve_level=1)
+                                        resolve_level=1, device="cpu")
         assert np.abs(got.numpy() - want).max() <= 1e-3, t
 
 
 def test_temporal_engine_view_matrices_match_tpuao():
     depths, _, eyes = dolly(64, 64, 3, step=(0.1, 0.0, 0.0), seed=6)
-    eng = TemporalAOEngine(camera=CAM)
+    eng = TemporalAOEngine(camera=CAM, device="cpu")
     jeng = JPL.TemporalAOEngine(camera=JCAM)
     outs = []
     for t in range(3):
@@ -390,7 +392,7 @@ def test_temporal_engine_view_matrices_match_tpuao():
             o.numpy(), np.asarray(jeng.render(depths[t], view=view(eyes[t]))),
             atol=TOL)
         outs.append(o)
-    single = render_frame(depths[2], CAM, AOParams())
+    single = render_frame(depths[2], CAM, AOParams(), device="cpu")
     assert float((outs[2] - single).abs().max()) > 1e-4  # history is used
     eng.reset()
     np.testing.assert_array_equal(eng.render(depths[0], view=view(eyes[0])),
@@ -402,7 +404,7 @@ def test_temporal_engine_view_matrices_match_tpuao():
 def test_temporal_engine_properties_and_resolve_level():
     z = f32(JF.spheres_on_plane(64, 96, GCAM, n_spheres=2, seed=3,
                                 backend="numpy"))
-    eng = TemporalAOEngine(camera=CAM, params=preset("HIGH"))
+    eng = TemporalAOEngine(camera=CAM, params=preset("HIGH"), device="cpu")
     eng.history_weight = 0.5
     eng.depth_tolerance = 0.2
     assert eng.tparams == TemporalParams(history_weight=0.5,
@@ -420,9 +422,10 @@ def test_temporal_engine_properties_and_resolve_level():
     with pytest.raises(ValueError, match="resolve_level"):
         eng.resolve_level = 2
     with pytest.raises(ValueError, match="resolve_level"):
-        TemporalAOEngine(resolve_level=3)
+        TemporalAOEngine(resolve_level=3, device="cpu")
     with pytest.raises(ValueError, match="impl='fused'"):
-        TemporalAOEngine(camera=CAM, impl="fused", resolve_level=1).render(z)
+        TemporalAOEngine(camera=CAM, impl="fused", resolve_level=1,
+                         device="cpu").render(z)
 
 
 def test_state_shape_guard_and_inputs():
@@ -430,16 +433,16 @@ def test_state_shape_guard_and_inputs():
                                 backend="numpy"))
     with pytest.raises(ValueError, match="resolve_level"):
         render_frame_temporal(z, T.initial_state(64, 96), CAM,
-                              resolve_level=1)
+                              resolve_level=1, device="cpu")
     with pytest.raises(ValueError, match="resolve_level"):
         render_frame_temporal(z, T.initial_state(32, 48), CAM,
-                              resolve_level=0)
+                              resolve_level=0, device="cpu")
     with pytest.raises(ValueError, match="resolve_level"):
-        render_frame_temporal(z, None, CAM, resolve_level=2)
+        render_frame_temporal(z, None, CAM, resolve_level=2, device="cpu")
     with pytest.raises(ValueError, match="single"):
-        render_frame_temporal(np.stack([z, z]), None, CAM)
+        render_frame_temporal(np.stack([z, z]), None, CAM, device="cpu")
     with pytest.raises(ValueError, match="motions"):
         render_sequence_temporal(np.stack([z, z]), CAM,
-                                 motions=np.zeros((2, 3, 3)))
+                                 motions=np.zeros((2, 3, 3)), device="cpu")
     with pytest.raises(ValueError, match=r"\(T, H, W\)"):
-        render_sequence_temporal(z, CAM)
+        render_sequence_temporal(z, CAM, device="cpu")

@@ -41,7 +41,7 @@ def test_render_views_matches_tpuao(use_normals):
     else:
         z, n = views(3), None
     got = SH.render_views(z, cam, AOParams(use_normals=use_normals),
-                          normals=n)
+                          normals=n, device="cpu")
     want = np.asarray(JSH.render_views(
         jnp.asarray(z), jcam, JAOParams(use_normals=use_normals),
         normals=None if n is None else jnp.asarray(n), impl="jnp"))
@@ -51,9 +51,10 @@ def test_render_views_matches_tpuao(use_normals):
         np.testing.assert_array_equal(
             got[i].numpy(),
             render_frame(z[i], cam, AOParams(use_normals=use_normals),
-                         normals=None if n is None else n[i]).numpy())
+                         normals=None if n is None else n[i],
+                         device="cpu").numpy())
     with pytest.raises(ValueError, match="V, H, W"):
-        SH.render_views(z[0], cam)
+        SH.render_views(z[0], cam, device="cpu")
 
 
 @pytest.mark.parametrize("pad", [0, 1, 5])

@@ -1,11 +1,7 @@
-// One blur+upsample chain step on a shared-memory tile, optionally with
-// the level's AO rendered in the same block (the fused step).
-//
-// Used by upsample.cu (NP == 0: the lo AO is read from memory), by
-// fused.cu (NP > 0: the lo AO is rendered here and never reaches device
-// memory) and, through its filter and 2x stages, by fused_zc.cu.  The
-// math is the composition rule of
-// tpuao/ops/upsample.py::blur_upsample_step:
+// One blur+upsample chain step on a shared-memory tile: the per-position
+// stages that the upsample kernel (upsample.cu), the fused step (fused.cu)
+// and the zero-copy fused step (fused_zc.cu) share.  The math is the
+// composition rule of tpuao/ops/upsample.py::blur_upsample_step:
 //   1. lo = min(lo_ao, lo_ao2) [pre-min], edge-extended by one texel at
 //      the bottom and right to (lh+1, lw+1);
 //   2. 3x3 noise filter [1,2,1]^2 / (1 + nfs*dd^2) on that extended domain
@@ -15,23 +11,30 @@
 //      ones) times 1/(dd^2/k_blur + k_up), normalised;
 //   4. optional min with a hi-res AO field; writes only the (h0, w0) crop.
 //
-// Tiling: a block of kTileH x kTileW threads loads (or renders) one
-// extended lo tile, rows i0-1 .. i0+kOutH+1 and columns j0-1 .. j0+kOutW+1
-// at clamped coordinates -- clamping the coordinate is exactly the edge
-// extension of the AO array, which the Pallas fused kernel gets by masked
-// row substitution and a column concat.  It then filters the (kOutH+1) x
-// (kOutW+1) positions the block's taps need and writes the 2x output of
-// its kOutH x kOutW lo texels, one thread per lo texel.
+// A block owns OH x OW lo texels from (i0, j0) and holds their extended
+// tile, rows i0-1 .. i0+OH+1 and columns j0-1 .. j0+OW+1 at clamped
+// coordinates -- clamping the coordinate is exactly the edge extension of
+// the AO array, which the Pallas fused kernel gets by masked row
+// substitution and a column concat.  It filters the (OH+1) x (OW+1)
+// positions its 2x taps need, then writes the 2x output of its lo texels.
+// The stages are functions of a position, so a kernel may spread the
+// positions over its threads as it likes: every kernel that calls them on
+// the same tile gives the same bits.
+//
+// The upsample kernel is one thread per extended-tile texel on a 32 x 16
+// block, as is fused_zc.cu; fused.cu has a larger tile of its own.
+//
+// Cost: a lo texel's filter and 2x take ~153 FP32 operations counted as
+// one each, but ~32 of them are IEEE divisions (10 in the filter, 22 in
+// the 2x), each several instructions; they are the plain version's, so
+// they stay.  At the render kernel's rate the fused 4K step's render
+// (1.20x the level's texels) would take ~0.07 of its 0.159 ms; the rest
+// is these stages, the staging and the barriers between them (PERF.md).
 #pragma once
 
 #include "common.cuh"
 
 namespace tpuao {
-
-constexpr int kTileW = 32;  // extended tile = block shape, one texel each
-constexpr int kTileH = 16;
-constexpr int kOutW = kTileW - 3;  // lo texels written per block
-constexpr int kOutH = kTileH - 3;
 
 struct ChainArgs {
   const float* lo_ao;     // (lh, lw) lo AO; unused when rendering
@@ -42,128 +45,129 @@ struct ChainArgs {
   float* out;             // (h0, w0), h0 <= 2lh, w0 <= 2lw
   int lh, lw, h0, w0;
   float k_blur, k_up, nfs;  // upsample tunables
-  float falloff, strength;  // render tunables (NP > 0)
+  float falloff, strength;  // render tunables (fused steps)
 };
 
-// The block's shared tiles: the extended lo tile's AO (after pre-min) and
-// depth, and the filtered field on the (kOutH+1) x (kOutW+1) positions the
-// 2x taps read.
-struct ChainTile {
-  float a[kTileH][kTileW];
-  float d[kTileH][kTileW];
-  float f[kOutH + 1][kOutW + 1];
+// A block's shared tiles for OH x OW lo texels: the extended tile's AO
+// (after pre-min) and depth, and the filtered field on the (OH+1) x (OW+1)
+// positions the 2x taps read.
+template <int OH, int OW>
+struct ChainTileT {
+  static constexpr int kOH = OH, kOW = OW;
+  float a[OH + 3][OW + 3];
+  float d[OH + 3][OW + 3];
+  float f[OH + 1][OW + 1];
 };
 
-// Stage 2: noise filter at extended position (i0+ty, j0+tx): the centre is
-// tile slot (ty+1, tx+1), which holds lo texel min(i0+ty, lh-1).  Reads
-// t.a and t.d, writes t.f; the caller synchronises around it.
-__device__ __forceinline__ void chain_filter(ChainTile& t, float nfs, int tx,
-                                             int ty) {
-  if (ty > kOutH || tx > kOutW) return;
-  const float dc = t.d[ty + 1][tx + 1];
+// The upsample and zero-copy kernels: a block of kTileW x kTileH threads,
+// one per extended-tile texel, writing kOutH x kOutW lo texels.
+constexpr int kTileW = 32;
+constexpr int kTileH = 16;
+constexpr int kOutW = kTileW - 3;
+constexpr int kOutH = kTileH - 3;
+using ChainTile = ChainTileT<kOutH, kOutW>;
+
+// Stage 2: noise filter at extended position (i0+y, j0+x): the centre is
+// tile slot (y+1, x+1), which holds lo texel min(i0+y, lh-1).  Reads t.a
+// and t.d, writes t.f; the caller synchronises around it.
+template <class Tile>
+__device__ __forceinline__ void chain_filter(Tile& t, float nfs, int x,
+                                             int y) {
+  if (y > Tile::kOH || x > Tile::kOW) return;
+  const float dc = t.d[y + 1][x + 1];
   float acc = 0.0f, wacc = 0.0f;
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
       const float g = (dy == 0 ? 2.0f : 1.0f) * (dx == 0 ? 2.0f : 1.0f);
-      const float dd = t.d[ty + 1 + dy][tx + 1 + dx] - dc;
+      const float dd = t.d[y + 1 + dy][x + 1 + dx] - dc;
       const float wt = g / (1.0f + nfs * dd * dd);
-      acc += wt * t.a[ty + 1 + dy][tx + 1 + dx];
+      acc += wt * t.a[y + 1 + dy][x + 1 + dx];
       wacc += wt;
     }
   }
-  t.f[ty][tx] = acc / wacc;
+  t.f[y][x] = acc / wacc;
 }
 
-// Stage 3: bilateral 2x of lo texel (i0+ty, j0+tx) into its four hi
-// texels, for lo rows below i_end only; writes only the (h0, w0) crop.
-__device__ __forceinline__ void chain_upsample(const ChainTile& t,
+// Stage 3 at one hi texel: the value of (2i+P, 2j+Q) of lo texel
+// (i0+y, j0+x), whose hi depth is hd.
+template <int P, int Q, class Tile>
+__device__ __forceinline__ float chain_upsample_at(const Tile& t,
+                                                   const ChainArgs& a, int x,
+                                                   int y, float hd) {
+  float acc = 0.0f, wacc = 0.0f;
+#pragma unroll
+  for (int dr = 0; dr <= P; ++dr) {
+#pragma unroll
+    for (int dc = 0; dc <= Q; ++dc) {
+      const float wr = P == 0 ? 1.0f : 0.5f;
+      const float wc = Q == 0 ? 1.0f : 0.5f;
+      // depth of lo tap min(i+dr, lh-1) sits in tile slot y+dr+1
+      const float dd = t.d[y + dr + 1][x + dc + 1] - hd;
+      const float wt = (wr * wc) / (dd * dd / a.k_blur + a.k_up);
+      acc += wt * t.f[y + dr][x + dc];
+      wacc += wt;
+    }
+  }
+  return acc / fmaxf(wacc, 1e-30f);
+}
+
+// Stage 3 at hi texel (hr, hc) = (2i+P, 2j+Q), inside the (h0, w0) crop,
+// its hi depth read from memory; writes it, min'd with the blend field if
+// there is one, to a.out.
+template <int P, int Q, class Tile>
+__device__ __forceinline__ void chain_upsample_hi(const Tile& t,
+                                                  const ChainArgs& a, int x,
+                                                  int y, int hr, int hc) {
+  const size_t hi_idx =
+      (size_t)a.lh * a.lw * blockIdx.z * 4 + (size_t)hr * (2 * a.lw) + hc;
+  float v = chain_upsample_at<P, Q>(t, a, x, y, a.hi_d[hi_idx]);
+  if (a.hi_blend != nullptr) v = fminf(v, a.hi_blend[hi_idx]);
+  a.out[(size_t)a.h0 * a.w0 * blockIdx.z + (size_t)hr * a.w0 + hc] = v;
+}
+
+// Stage 3: bilateral 2x of lo texel (i0+y, j0+x) into its four hi texels,
+// for lo rows below i_end only; writes only the (h0, w0) crop.
+template <class Tile>
+__device__ __forceinline__ void chain_upsample(const Tile& t,
                                                const ChainArgs& a, int i0,
-                                               int j0, int i_end, int tx,
-                                               int ty) {
-  if (ty >= kOutH || tx >= kOutW) return;
-  const int i = i0 + ty, j = j0 + tx;
+                                               int j0, int i_end, int x,
+                                               int y) {
+  if (y >= Tile::kOH || x >= Tile::kOW) return;
+  const int i = i0 + y, j = j0 + x;
   if (i >= i_end || 2 * i >= a.h0 || 2 * j >= a.w0) return;
-  const size_t hi_plane = (size_t)a.lh * a.lw * blockIdx.z * 4;
-  const size_t out_plane = (size_t)a.h0 * a.w0 * blockIdx.z;
-  const int hw = 2 * a.lw;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int hr = 2 * i + p, hc = 2 * j + q;
-      if (hr >= a.h0 || hc >= a.w0) continue;
-      const float hd = a.hi_d[hi_plane + (size_t)hr * hw + hc];
-      float acc = 0.0f, wacc = 0.0f;
-#pragma unroll
-      for (int dr = 0; dr <= p; ++dr) {
-#pragma unroll
-        for (int dc = 0; dc <= q; ++dc) {
-          const float wr = p == 0 ? 1.0f : 0.5f;
-          const float wc = q == 0 ? 1.0f : 0.5f;
-          // depth of lo tap min(i+dr, lh-1) sits in tile slot ty+dr+1
-          const float dd = t.d[ty + dr + 1][tx + dc + 1] - hd;
-          const float wt = (wr * wc) / (dd * dd / a.k_blur + a.k_up);
-          acc += wt * t.f[ty + dr][tx + dc];
-          wacc += wt;
-        }
-      }
-      float v = acc / fmaxf(wacc, 1e-30f);
-      if (a.hi_blend != nullptr)
-        v = fminf(v, a.hi_blend[hi_plane + (size_t)hr * hw + hc]);
-      a.out[out_plane + (size_t)hr * a.w0 + hc] = v;
-    }
-  }
+  const bool row1 = 2 * i + 1 < a.h0, col1 = 2 * j + 1 < a.w0;
+  chain_upsample_hi<0, 0>(t, a, x, y, 2 * i, 2 * j);
+  if (col1) chain_upsample_hi<0, 1>(t, a, x, y, 2 * i, 2 * j + 1);
+  if (row1) chain_upsample_hi<1, 0>(t, a, x, y, 2 * i + 1, 2 * j);
+  if (row1 && col1)
+    chain_upsample_hi<1, 1>(t, a, x, y, 2 * i + 1, 2 * j + 1);
 }
 
-template <int NP>
-__global__ void __launch_bounds__(kTileW * kTileH)
-chain_step_kernel(const __grid_constant__ ChainArgs a,
-                  const __grid_constant__ PairTable pt) {
-  __shared__ ChainTile t;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * kOutH, j0 = blockIdx.x * kOutW;
-  const size_t lo_plane = (size_t)a.lh * a.lw * blockIdx.z;
-  const float* lo_d = a.lo_d + lo_plane;
-
-  {  // 1. the extended tile at clamped coordinates
-    const int r = min(max(i0 - 1 + ty, 0), a.lh - 1);
-    const int c = min(max(j0 - 1 + tx, 0), a.lw - 1);
-    const size_t idx = (size_t)r * a.lw + c;
-    float ao;
-    if constexpr (NP > 0) {
-      ao = render_texel<NP>(GlobalTaps{lo_d, a.lh, a.lw}, r, c, pt,
-                            a.falloff, a.strength);
-    } else {
-      ao = a.lo_ao[lo_plane + idx];
-    }
-    if (a.lo_ao2 != nullptr) ao = fminf(ao, a.lo_ao2[lo_plane + idx]);
-    t.a[ty][tx] = ao;
-    t.d[ty][tx] = lo_d[idx];
+// Stage 3 along a hi row, for a kernel without a blend field that has
+// staged the hi depths of its tile: hi row 2*i0 + yy (parity yy & 1, the
+// same for every thread of a warp that shares yy), texels 2j and 2j+1 of
+// lo column j0+x, for lo rows below i_end only; hd points at the staged
+// depth of (2*i0 + yy, 2*j0), the row's first.  Adjacent threads write
+// adjacent pairs of hi texels.
+template <class Tile>
+__device__ __forceinline__ void chain_upsample_row(const Tile& t,
+                                                   const ChainArgs& a, int i0,
+                                                   int j0, int i_end, int x,
+                                                   int yy, const float* hd) {
+  const int y = yy >> 1, i = i0 + y, j = j0 + x;
+  const int hr = 2 * i0 + yy, hc = 2 * j;
+  if (x >= Tile::kOW || i >= i_end || hr >= a.h0 || hc >= a.w0) return;
+  float* out = a.out + (size_t)a.h0 * a.w0 * blockIdx.z + (size_t)hr * a.w0;
+  const bool col1 = hc + 1 < a.w0;
+  if ((yy & 1) == 0) {
+    out[hc] = chain_upsample_at<0, 0>(t, a, x, y, hd[2 * x]);
+    if (col1) out[hc + 1] = chain_upsample_at<0, 1>(t, a, x, y, hd[2 * x + 1]);
+  } else {
+    out[hc] = chain_upsample_at<1, 0>(t, a, x, y, hd[2 * x]);
+    if (col1) out[hc + 1] = chain_upsample_at<1, 1>(t, a, x, y, hd[2 * x + 1]);
   }
-  __syncthreads();
-  chain_filter(t, a.nfs, tx, ty);
-  __syncthreads();
-  chain_upsample(t, a, i0, j0, a.lh, tx, ty);
-}
-
-// Launches one chain step over `batch` frames; returns the cudaError_t.
-template <int NP>
-inline cudaError_t launch_chain_step(const ChainArgs& a, const PairTable& pt,
-                                     int batch, int device, void* stream) {
-  if (batch < 1 || batch > 65535 || a.lh < 1 || a.lw < 1 || a.h0 < 1 ||
-      a.w0 < 1 || a.h0 > 2 * a.lh || a.w0 > 2 * a.lw)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const int lo_rows = (a.h0 + 1) / 2, lo_cols = (a.w0 + 1) / 2;
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((lo_cols + kOutW - 1) / kOutW, (lo_rows + kOutH - 1) / kOutH,
-                  batch);
-  chain_step_kernel<NP><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, pt);
-  return cudaGetLastError();
 }
 
 }  // namespace tpuao

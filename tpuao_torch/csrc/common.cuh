@@ -1,4 +1,5 @@
-// Shared device code of the frame-path kernels: the pair table, the
+// Shared device code of the frame-path kernels: the pair table (its
+// offsets at compile time, its per-level constants at run time), the
 // parity-4 edge rule and the per-texel AO estimator (depth-only, or with
 // the normals path's tangent-plane offset).
 //
@@ -8,9 +9,39 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace tpuao {
 
 constexpr int kMaxPairs = 34;  // 12 disc entries -> 34 mirrored tap pairs
+
+// Offset `axis` (0: dx, 1: dy), in level texels, of pair k of the np-pair
+// table: the exhaustive (34-pair) and sparse (10-pair) tables below, in
+// the order of tpuao_torch/ops/kernels.py::pair_table (tpuao/ops/
+// render.py's _pair_constants).  They are fixed per table, so the kernels
+// that tile the level in shared memory take them as compile-time
+// constants and every tap is one load at an immediate offset.  The tables
+// are local to this constexpr function so that device code may evaluate
+// it (as a constant expression: a template argument's value).
+// tests/test_torch_params.py holds them equal to the Python ones.
+__host__ __device__ constexpr int pair_offset(int np, int k, int axis) {
+  constexpr int kExhaustivePairs[34][2] = {
+      {4, 0},   {0, 4},   {8, 0},   {0, 8},   {12, 0},  {0, 12},  {16, 0},
+      {0, 16},  {4, 4},   {4, -4},  {8, 8},   {8, -8},  {12, 12}, {12, -12},
+      {4, 8},   {8, -4},  {8, 4},   {4, -8},  {4, 12},  {12, -4}, {12, 4},
+      {4, -12}, {4, 16},  {16, -4}, {16, 4},  {4, -16}, {8, 12},  {12, -8},
+      {12, 8},  {8, -12}, {8, 16},  {16, -8}, {16, 8},  {8, -16}};
+  constexpr int kSparsePairs[10][2] = {{8, 0},  {0, 8},   {16, 0}, {0, 16},
+                                       {8, 8},  {8, -8},  {8, 16}, {16, -8},
+                                       {16, 8}, {8, -16}};
+  return np == 34 ? kExhaustivePairs[k][axis] : kSparsePairs[k][axis];
+}
+__host__ __device__ constexpr int pair_dx(int np, int k) {
+  return pair_offset(np, k, 0);
+}
+__host__ __device__ constexpr int pair_dy(int np, int k) {
+  return pair_offset(np, k, 1);
+}
 
 // One mirrored tap pair at one level: offsets (dx, dy) in level texels
 // (stride 4), inv_r = 1 / (radius_coef * t) for the entry's thickness t,
@@ -35,6 +66,21 @@ struct PairTable {
   float m2[kMaxPairs];
 };
 
+// Fill `pt` from the host arrays of one level (`m2` may be null).  Refuses
+// a pair count other than 34 or 10, and a table whose offsets differ from
+// the compile-time ones (they are what the tiled kernels read).
+inline cudaError_t make_pair_table(const void* pairs, const float* m2,
+                                   int npairs, PairTable& pt) {
+  if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
+  std::memset(&pt, 0, sizeof(pt));
+  std::memcpy(pt.p, pairs, sizeof(Pair) * npairs);
+  if (m2 != nullptr) std::memcpy(pt.m2, m2, sizeof(float) * npairs);
+  for (int k = 0; k < npairs; ++k)
+    if (pt.p[k].dx != pair_dx(npairs, k) || pt.p[k].dy != pair_dy(npairs, k))
+      return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
@@ -50,32 +96,54 @@ __device__ __forceinline__ int parity4(int r, int n) {
   return r;
 }
 
-// Depth taps read from the unpadded (h, w) level in device memory: tap
-// (r, c), with -16 <= r < h + 16 and likewise c, is the parity-4 padded
-// level's texel there.
-struct GlobalTaps {
-  const float* __restrict__ z;
-  int h, w;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return __ldg(z + (size_t)parity4(r, h) * w + parity4(c, w));
-  }
-};
+// The estimator of tpuao/ops/pallas_kernels.py::_render_kernel, in pieces
+// that every render-based kernel composes in the same order, so kernels
+// that see the same tap values give the same bits.  The pair test uses the
+// form 1 + (zs/zc - (1 + rel)) * inv_r of the plain version
+// (ops/render.py), in its rounding: every product and sum is rounded on
+// its own (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc does not contract
+// into FMAs).  A contracted form differs from the plain version by up to a
+// few ulp of zs/zc, and inv_r (large at 4K and 8K) amplifies that to over
+// 1e-6.  So the kernels issue no FMA here: each pair is 23 rounded FP32
+// operations depth-only (8 for the two d, 2 falloff products, 8 clamps, 2
+// max, 3 for the weighted sum), about 11 more with the tangent term.
+
+// One pair's weighted visibility: taps zs1 = z(+d), zs2 = z(-d) against
+// the centre's 1/z, expected depth ratios e1, e2 (1 +- rel; 1 without
+// normals).
+__device__ __forceinline__ float pair_vis(float zs1, float zs2, float inv_zc,
+                                          float e1, float e2, float inv_r,
+                                          float half_w, float falloff) {
+  const float d1 = __fadd_rn(
+      1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs1, inv_zc), e1), inv_r));
+  const float d2 = __fadd_rn(
+      1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs2, inv_zc), e2), inv_r));
+  const float p1 = clamp01(__fmul_rn(falloff, d1));
+  const float p2 = clamp01(__fmul_rn(falloff, d2));
+  return __fmul_rn(half_w, __fadd_rn(fmaxf(clamp01(d1), p2),
+                                     fmaxf(clamp01(d2), p1)));
+}
+
+// The normals path's soft-clamped tangent-plane offset of one pair:
+// rel = x m2 / (m2 + x^2) with x = gx*ox + gy*oy, where (gx, gy) is the
+// texel's tangent slope per unit of pair offset divided by off_scale and
+// (ox, oy) = (dx, dy) * off_scale.  The division is IEEE.
+__device__ __forceinline__ float tangent_rel(float gx, float gy, float ox,
+                                             float oy, float m2) {
+  const float x = __fadd_rn(__fmul_rn(gx, ox), __fmul_rn(gy, oy));
+  return __fmul_rn(x, m2) / __fadd_rn(m2, __fmul_rn(x, x));
+}
+
+// powf(0, s) is exactly 0 for every strength in range (s >= 0.1), which
+// is what the Pallas kernel's explicit vis > 0 select guarantees.
+__device__ __forceinline__ float ao_of_vis(float vis, float strength) {
+  return powf(clamp01(vis), strength);
+}
 
 // AO at texel (r, c) of one level, its depth taps read through `z` (a
-// GlobalTaps, or a shared-memory tile that holds the same values; see
-// ring.cuh): the NP-pair estimator of
-// tpuao/ops/pallas_kernels.py::_render_kernel.  The arithmetic is written
-// once, so every kernel that calls it with the same tap values gives the
-// same bits.  The pair test uses the form 1 + (zs/zc - (1 + rel)) * inv_r
-// of the plain version (ops/render.py), in its rounding: every product and
-// sum is rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc
-// does not contract into FMAs).  A contracted form differs from the plain
-// version by up to a few ulp of zs/zc, and inv_r (large at 4K and 8K)
-// amplifies that to over 1e-6.  Depth-only (kTangent false), rel is 0.
-// With kTangent, (gx, gy) is the texel's tangent slope per unit of pair
-// offset divided by off_scale, and rel = x m2 / (m2 + x^2) with
-// x = gx*dx*off_scale + gy*dy*off_scale: the soft-clamped tangent-plane
-// offset of the normals path.
+// functor over padded coordinates, e.g. a ring in shared memory; see
+// ring.cuh) with the pair offsets of the runtime table.  With kTangent,
+// (gx, gy) and off_scale as in tangent_rel.
 template <int NP, bool kTangent = false, class Taps>
 __device__ __forceinline__ float render_texel(const Taps& z, int r, int c,
                                               const PairTable& pt,
@@ -88,31 +156,63 @@ __device__ __forceinline__ float render_texel(const Taps& z, int r, int c,
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     const Pair pr = pt.p[k];
-    const float zs1 = z(r + pr.dy, c + pr.dx);
-    const float zs2 = z(r - pr.dy, c - pr.dx);
     float e1 = 1.0f, e2 = 1.0f;  // expected depth ratios 1 +- rel
     if constexpr (kTangent) {
-      const float x =
-          __fadd_rn(__fmul_rn(gx, (float)pr.dx * off_scale),
-                    __fmul_rn(gy, (float)pr.dy * off_scale));
-      const float m2 = pt.m2[k];
-      const float rel = __fmul_rn(x, m2) / __fadd_rn(m2, __fmul_rn(x, x));
+      const float rel = tangent_rel(gx, gy, (float)pr.dx * off_scale,
+                                    (float)pr.dy * off_scale, pt.m2[k]);
       e1 = __fadd_rn(1.0f, rel);
       e2 = __fsub_rn(1.0f, rel);
     }
-    const float d1 = __fadd_rn(
-        1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs1, inv_zc), e1), pr.inv_r));
-    const float d2 = __fadd_rn(
-        1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs2, inv_zc), e2), pr.inv_r));
-    const float p1 = clamp01(__fmul_rn(falloff, d1));
-    const float p2 = clamp01(__fmul_rn(falloff, d2));
-    vis = __fadd_rn(vis, __fmul_rn(pr.half_w,
-                                   __fadd_rn(fmaxf(clamp01(d1), p2),
-                                             fmaxf(clamp01(d2), p1))));
+    vis = __fadd_rn(vis, pair_vis(z(r + pr.dy, c + pr.dx),
+                                  z(r - pr.dy, c - pr.dx), inv_zc, e1, e2,
+                                  pr.inv_r, pr.half_w, falloff));
   }
-  // powf(0, s) is exactly 0 for every strength in range (s >= 0.1), which
-  // is what the Pallas kernel's explicit vis > 0 select guarantees.
-  return powf(clamp01(vis), strength);
+  return ao_of_vis(vis, strength);
+}
+
+// Pair K onwards of render_tile_texel's sum (a compile-time recursion, so
+// each pair's offsets are constant expressions and every tap a load at an
+// immediate offset); returns vis after the last pair.
+template <int NP, int K, int kPitch, bool kTangent>
+__device__ __forceinline__ float pairs_from(const float* z,
+                                            const PairTable& pt,
+                                            float falloff, float gx, float gy,
+                                            float off_scale, float inv_zc,
+                                            float vis) {
+  if constexpr (K == NP) {
+    return vis;
+  } else {
+    constexpr int dx = pair_dx(NP, K), dy = pair_dy(NP, K);
+    constexpr int off = dy * kPitch + dx;
+    float e1 = 1.0f, e2 = 1.0f;
+    if constexpr (kTangent) {
+      const float rel = tangent_rel(gx, gy, (float)dx * off_scale,
+                                    (float)dy * off_scale, pt.m2[K]);
+      e1 = __fadd_rn(1.0f, rel);
+      e2 = __fsub_rn(1.0f, rel);
+    }
+    vis = __fadd_rn(vis, pair_vis(z[off], z[-off], inv_zc, e1, e2,
+                                  pt.p[K].inv_r, pt.p[K].half_w, falloff));
+    return pairs_from<NP, K + 1, kPitch, kTangent>(z, pt, falloff, gx, gy,
+                                                   off_scale, inv_zc, vis);
+  }
+}
+
+// AO of the texel whose depth is at *z in a tile of the parity-4 padded
+// level in shared memory (row pitch kPitch, at least 16 texels of halo
+// around the texel), with the compile-time pair offsets.  The same
+// operations in the same order as render_texel, so the same bits.
+template <int NP, int kPitch, bool kTangent = false>
+__device__ __forceinline__ float render_tile_texel(const float* z,
+                                                   const PairTable& pt,
+                                                   float falloff,
+                                                   float strength,
+                                                   float gx = 0.0f,
+                                                   float gy = 0.0f,
+                                                   float off_scale = 0.0f) {
+  return ao_of_vis(pairs_from<NP, 0, kPitch, kTangent>(
+                       z, pt, falloff, gx, gy, off_scale, 1.0f / z[0], 0.0f),
+                   strength);
 }
 
 }  // namespace tpuao

@@ -9,8 +9,9 @@
 //
 // What bounds it on the H100: arithmetic, from the render, as in fused.cu:
 // each block renders its (kOutH+3) x (kOutW+3) extended tile, 1.36x the lo
-// texels it writes, at 34 pair tests a texel.  fused.cu reads the render's
-// 68 taps a texel from global memory; here they come from shared memory.
+// texels it writes, at 34 pair tests a texel, its taps read through the
+// ring's runtime address rule and the runtime pair offsets (fused.cu
+// stages a larger tile once and reads them at compile-time offsets).
 //
 // Design: a block of kTileW x kTileH threads owns a strip of kOutW lo
 // columns over a segment of R = max(min(row_tile, lh), 40) lo rows
@@ -22,11 +23,9 @@
 // shares with the previous window; the next step's 13 new rows are
 // copied while the current one computes (commit_group / wait_group 1),
 // so a row is copied once per block.  The tile is rendered from
-// the ring (common.cuh's render_texel), pre-min'd with c1, then passed to
-// chain_step.cuh's filter and 2x stages, so every output equals
-// fused.cu's bit for bit.
-
-#include <cstring>
+// the ring (common.cuh's render_texel, the operations of fused.cu's
+// render_tile_texel), pre-min'd with c1, then passed to chain_step.cuh's
+// filter and 2x stages, so every output equals fused.cu's bit for bit.
 
 #include "chain_step.cuh"
 #include "ring.cuh"
@@ -99,12 +98,11 @@ extern "C" int tpuao_fused_render_upsample_step_zc(
   if (batch < 1 || batch > 65535 || lh < 4 || lw < 4 || seg < 1 || h0 < 1 ||
       w0 < 1 || h0 > 2 * lh || w0 > 2 * lw)
     return cudaErrorInvalidValue;
-  if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   PairTable pt;
-  std::memset(&pt, 0, sizeof(pt));
-  std::memcpy(pt.p, pairs, sizeof(Pair) * npairs);
+  cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const ChainArgs a{nullptr, c1, ds, hi_d, nullptr, out, lh, lw, h0, w0,
                     k_blur, k_up, nfs, falloff, strength};
   const int lo_rows = (h0 + 1) / 2, lo_cols = (w0 + 1) / 2;

@@ -5,29 +5,40 @@
 // _render_kernel): the use_normals=False branch (tpuao_render_ao_level)
 // and the use_normals=True branch (tpuao_render_ao_level_normals).
 //
-// What bounds it on the H100: arithmetic.  Each texel runs 34 pair tests
-// (68 taps, ~15 FP32 operations per pair, ~8 more with normals) against 4
-// bytes read and 4 written (8 or 12 more with normals: the texel's two
-// slopes or three normal components), far above the card's
-// operations-per-byte balance point.  The taps of neighbouring texels
-// overlap, so they come from L1/L2 and device memory sees the level about
-// once.
+// What bounds it on the H100: arithmetic.  A texel runs 34 pair tests of
+// 23 FP32 operations (about 34 with the tangent term, one of them an IEEE
+// division): ~788 operations depth-only, ~1164 with normals, against 8
+// bytes of traffic (16 with slope planes, 20 with raw normals).  At
+// 67 TFLOP/s that is 24.6 us for level 1 of a 4K frame (2,088,960
+// texels), and the bytes would take 5 us.  Every step of the pair test
+// rounds on its own, as the plain version does (common.cuh), so the
+// kernel issues no FMA and its real ceiling is half that rate; ten of the
+// 23 operations are min/max.
 //
-// Design: one thread per output texel, the batch as blockIdx.z.  Taps are
-// read straight from the unpadded level through the parity-4 index rule,
-// so no padded copy or halo windows are built.  The pair loop is unrolled
-// over a compile-time pair count (34 exhaustive, 10 sparse) with the
-// table in the constant bank; the tunables and the normals path's
-// off_scale / texel_scale are runtime arguments and the per-level inv_r
-// and m2 ride in the pair table, so nothing rebuilds when they change.
-// The normals read only the centre texel (no halo), once per thread,
-// which keeps their extra traffic to one coalesced load per plane.  The
-// depth-only estimate with its taps staged in shared memory by a cp.async
-// pipeline is render_dma.cu.
+// Design: a block of 64 x 8 threads owns a tile of 8*NT rows x 64 columns
+// and stages it with its 16-texel halo once, by cp.async (16 bytes where
+// the rows allow), into shared memory as the parity-4 padded level
+// (tile.cuh): (8*NT + 32) x 96 floats, 24 KB at NT = 4.  The pair offsets
+// are compile-time constants (common.cuh) and the tile pitch is one too,
+// so every tap is one shared-memory load at an immediate offset from the
+// thread's base address: no parity-4 rule, no integer work per tap.  Each
+// thread renders NT texels of its column, 8 rows apart, one after another
+// (common.cuh's render_tile_texel in a loop that is not unrolled): a
+// thread stays at 27-40 registers and three blocks fit an SM.  Running
+// the NT texels' sums side by side in one pair loop, for independent
+// work, took 56-128 registers and measured slower: warps in flight count
+// for more here.  NT is 4 depth-only where that still gives every SM a
+// block, else 2 or 1 (small levels); 1 with normals, which measured
+// fastest.  The per-texel slopes or normals are read once, coalesced,
+// while the tile lands.  The tunables, the per-level inv_r / m2 (the
+// __grid_constant__ pair table) and the normals path's off_scale /
+// texel_scale are runtime data, so nothing rebuilds when they change.
+//
+// Measured (H100 SXM, 700 W; PERF.md, chip_smoke.py phase 12): level 1 of
+// 4K 0.0579 ms, 42% of its 24.6 us bound; with slope planes, levels 1-4
+// of four 1080p frames 0.2490 ms, 19% of their 48 us bound.
 
-#include <cstring>
-
-#include "common.cuh"
+#include "tile.cuh"
 
 namespace tpuao {
 
@@ -39,34 +50,99 @@ enum Mode : int {
   kNormals = 2,  // a = raw normals (batch, 3, h, w); scale = texel_scale
 };
 
-template <int NP, int MODE>
-__global__ void __launch_bounds__(256)
+constexpr int kRenderCols = 64;       // tile columns = blockDim.x
+constexpr int kRenderThreadRows = 8;  // blockDim.y; a thread's texels are
+                                      // this many rows apart
+constexpr int kRenderThreads = kRenderCols * kRenderThreadRows;
+constexpr int kRenderPitch = kRenderCols + 32;  // tile + halo, in floats
+
+// Three blocks an SM: at most 40 registers a thread (it takes 27-40).
+template <int NP, int MODE, int NT>
+__global__ void __launch_bounds__(kRenderThreads, 3)
 render_kernel(const float* __restrict__ z, const float* __restrict__ a,
               const float* __restrict__ b, float* __restrict__ out, int h,
               int w, const __grid_constant__ PairTable pt, float falloff,
-              float strength, float scale) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= h || c >= w) return;
+              float strength, float scale, int vec) {
+  static_assert(MODE == kDepthOnly || NT == 1, "normals: 1 texel a thread");
+  constexpr int kRows = kRenderThreadRows * NT;
+  __shared__ __align__(16) float s[(kRows + 32) * kRenderPitch];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int r0 = blockIdx.y * kRows, c0 = blockIdx.x * kRenderCols;
+  const int c = c0 + tx;
   const size_t hw = (size_t)h * w;
   const size_t plane = hw * blockIdx.z;
-  const size_t idx = (size_t)r * w + c;
-  const GlobalTaps taps{z + plane, h, w};
-  float ao;
-  if constexpr (MODE == kDepthOnly) {
-    ao = render_texel<NP>(taps, r, c, pt, falloff, strength);
-  } else if constexpr (MODE == kSlopes) {
-    ao = render_texel<NP, true>(taps, r, c, pt, falloff, strength,
-                                a[plane + idx], b[plane + idx], scale);
-  } else {
-    // g = n_xy * texel_scale / max(n_z, 0.05), per level texel
-    const float* n = a + 3 * plane + idx;
-    const float grad = scale / fmaxf(n[2 * hw], 0.05f);
-    ao = render_texel<NP, true>(taps, r, c, pt, falloff, strength,
-                                __fmul_rn(n[0], grad), __fmul_rn(n[hw], grad),
-                                1.0f);
+  stage_tile<kRows + 32, kRenderPitch>(s, z + plane, h, w, r0 - 16, c0 - 16,
+                                       vec, ty * kRenderCols + tx,
+                                       kRenderThreads);
+  cp_async_commit();
+
+  float gx = 0.0f, gy = 0.0f;  // the texel's own slopes, while the tile lands
+  if (MODE != kDepthOnly && r0 + ty < h && c < w) {
+    const size_t idx = plane + (size_t)(r0 + ty) * w + c;
+    if constexpr (MODE == kSlopes) {
+      gx = a[idx];
+      gy = b[idx];
+    } else if constexpr (MODE == kNormals) {
+      // g = n_xy * texel_scale / max(n_z, 0.05), per level texel
+      const float* n = a + 2 * plane + idx;  // (batch, 3, h, w)
+      const float grad = scale / fmaxf(n[2 * hw], 0.05f);
+      gx = __fmul_rn(n[0], grad);
+      gy = __fmul_rn(n[hw], grad);
+    }
   }
-  out[plane + idx] = ao;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the thread's texels one after another (a loop, not unrolled: one pair
+  // loop's registers at a time)
+#pragma unroll 1
+  for (int t = 0; t < NT; ++t) {
+    const int r = r0 + ty + t * kRenderThreadRows;
+    const float ao = render_tile_texel<NP, kRenderPitch, MODE != kDepthOnly>(
+        s + (ty + 16 + t * kRenderThreadRows) * kRenderPitch + tx + 16, pt,
+        falloff, strength, gx, gy, MODE == kSlopes ? scale : 1.0f);
+    if (r < h && c < w) out[plane + (size_t)r * w + c] = ao;
+  }
+}
+
+template <int NP, int MODE, int NT>
+void launch_render_nt(const float* z, const float* a, const float* b,
+                      float* out, int batch, int h, int w,
+                      const PairTable& pt, float falloff, float strength,
+                      float scale, int vec, cudaStream_t s) {
+  constexpr int kRows = kRenderThreadRows * NT;
+  const dim3 grid((w + kRenderCols - 1) / kRenderCols,
+                  (h + kRows - 1) / kRows, batch);
+  render_kernel<NP, MODE, NT><<<grid, dim3(kRenderCols, kRenderThreadRows),
+                                0, s>>>(z, a, b, out, h, w, pt, falloff,
+                                        strength, scale, vec);
+}
+
+// Blocks of a launch at NT texels a thread.
+inline long render_blocks(int batch, int h, int w, int nt) {
+  const int rows = kRenderThreadRows * nt;
+  return (long)((w + kRenderCols - 1) / kRenderCols) *
+         ((h + rows - 1) / rows) * batch;
+}
+
+// Texels a thread: depth-only the most of 4, 2, 1 that still gives every
+// SM a block (fewer halo rows staged a texel); with the tangent term 1,
+// which measured faster than 2 or 4 (PERF.md).
+template <int NP, int MODE>
+void launch_render_np(const float* z, const float* a, const float* b,
+                      float* out, int batch, int h, int w,
+                      const PairTable& pt, float falloff, float strength,
+                      float scale, int vec, cudaStream_t s) {
+  if constexpr (MODE == kDepthOnly) {
+    if (render_blocks(batch, h, w, 4) >= 132)
+      return launch_render_nt<NP, MODE, 4>(z, a, b, out, batch, h, w, pt,
+                                           falloff, strength, scale, vec, s);
+    if (render_blocks(batch, h, w, 2) >= 132)
+      return launch_render_nt<NP, MODE, 2>(z, a, b, out, batch, h, w, pt,
+                                           falloff, strength, scale, vec, s);
+  }
+  launch_render_nt<NP, MODE, 1>(z, a, b, out, batch, h, w, pt, falloff,
+                                strength, scale, vec, s);
 }
 
 template <int MODE>
@@ -75,25 +151,22 @@ cudaError_t launch_render(const float* z, const float* a, const float* b,
                           const void* pairs, const float* m2, int npairs,
                           float falloff, float strength, float scale,
                           int device, void* stream) {
-  if (batch < 1 || batch > 65535 || h < 4 || w < 4)
+  if (batch < 1 || batch > 65535 || h < 4 || w < 4 ||
+      (h + kRenderThreadRows - 1) / kRenderThreadRows > 65535)
     return cudaErrorInvalidValue;
-  if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   PairTable pt;
-  std::memset(&pt, 0, sizeof(pt));
-  std::memcpy(pt.p, pairs, sizeof(Pair) * npairs);
-  if (m2 != nullptr) std::memcpy(pt.m2, m2, sizeof(float) * npairs);
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y,
-                  batch);
+  cudaError_t err = make_pair_table(pairs, m2, npairs, pt);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int vec = vec4_ok(z, w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 34)
-    render_kernel<34, MODE><<<grid, block, 0, s>>>(
-        z, a, b, out, h, w, pt, falloff, strength, scale);
+    launch_render_np<34, MODE>(z, a, b, out, batch, h, w, pt, falloff,
+                               strength, scale, vec, s);
   else
-    render_kernel<10, MODE><<<grid, block, 0, s>>>(
-        z, a, b, out, h, w, pt, falloff, strength, scale);
+    launch_render_np<10, MODE>(z, a, b, out, batch, h, w, pt, falloff,
+                               strength, scale, vec, s);
   return cudaGetLastError();
 }
 

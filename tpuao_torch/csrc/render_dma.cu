@@ -7,10 +7,10 @@
 // so the level is read once.
 //
 // What bounds it on the H100: arithmetic, as in render.cu (34 pair tests,
-// 68 taps, per texel against 8 bytes of traffic).  render.cu reads every
-// tap from global memory through the read-only cache; here the taps come
-// from shared memory, which takes the tap loads off L1 and leaves the
-// pair arithmetic.
+// 68 taps, per texel against 8 bytes of traffic).  The taps come from
+// shared memory, but through the ring's runtime address rule and the
+// runtime pair offsets; render.cu, which stages a tile once and reads its
+// taps at compile-time offsets, takes about 0.6x its time (PERF.md).
 //
 // Design: a block of 32 x 8 threads owns a 32-column strip of a segment of
 // R = min(row_tile, h) rows (blockIdx.y; the batch is blockIdx.z) and
@@ -21,10 +21,9 @@
 // Each step copies only its 16 new rows; the parity-4 apron is applied
 // when an address is formed, so no padded copy of the level is built.
 // Copies are 16 bytes where the rows allow it (vec4_ok), else 4.  The
-// arithmetic is common.cuh's render_texel, the same as render.cu's, so the
-// two kernels give the same bits.
-
-#include <cstring>
+// arithmetic is common.cuh's render_texel, the same operations in the same
+// order as render.cu's render_tile_texel, so the two kernels give the same
+// bits.
 
 #include "ring.cuh"
 
@@ -90,12 +89,11 @@ extern "C" int tpuao_render_ao_level_dma(const float* z, float* out,
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || h < 4 || w < 4 || seg < 1 || seg > h)
     return cudaErrorInvalidValue;
-  if (npairs != 34 && npairs != 10) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   PairTable pt;
-  std::memset(&pt, 0, sizeof(pt));
-  std::memcpy(pt.p, pairs, sizeof(Pair) * npairs);
+  cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   const dim3 block(kDmaTileW, kDmaThreadsY);
   const dim3 grid((w + kDmaTileW - 1) / kDmaTileW, (h + seg - 1) / seg,
                   batch);

@@ -11,43 +11,9 @@
 // already resident.
 #pragma once
 
-#include <cstdint>
-
-#include "common.cuh"
+#include "tile.cuh"
 
 namespace tpuao {
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Whether 16-byte copies may be used: rows of a multiple of 4 texels
-// starting on 16-byte boundaries.  Then an aligned group of 4 padded
-// columns maps to 4 adjacent texels under the parity-4 rule (the apron
-// repeats whole 4-texel groups).
-inline bool vec4_ok(const void* z, int w) {
-  return w % 4 == 0 && reinterpret_cast<std::uintptr_t>(z) % 16 == 0;
-}
 
 template <int kRows, int kCols>
 struct Ring {
@@ -71,16 +37,8 @@ struct Ring {
     constexpr int kGroups = kCols / 4;
     for (int i = tid; i < n * kGroups; i += nthreads) {
       const int p = p0 + i / kGroups, g = i % kGroups;
-      const float* row = z + (size_t)parity4(min(max(p, -16), h + 15), h) * w;
-      float* dst = s + ((p - base) & (kRows - 1)) * kCols + 4 * g;
-      const int c = c_lo + 4 * g;
-      if (vec && c >= -16 && c + 4 <= w + 16) {
-        cp_async16(dst, row + parity4(c, w));
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          cp_async4(dst + e, row + parity4(min(max(c + e, -16), w + 15), w));
-      }
+      stage_group(s + ((p - base) & (kRows - 1)) * kCols + 4 * g,
+                  padded_row(z, p, h, w), c_lo + 4 * g, w, vec);
     }
   }
 };

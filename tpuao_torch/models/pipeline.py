@@ -178,16 +178,30 @@ def _quantize(out: torch.Tensor, out_dtype: str) -> torch.Tensor:
                      "(float32 | bfloat16 | uint8)")
 
 
+def resolve_device(device=None) -> torch.device:
+    """Where NumPy input goes: ``device``, by default the card
+    (``"cuda"``), as the JAX package puts it on its default device, the
+    chip.  Raises, naming the device and the ``device="cpu"`` escape, when
+    that is a CUDA device and there is none: nothing falls back to the CPU
+    unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device here; pass "
+                           "device=\"cpu\" (or CPU tensors) to run on the "
+                           "CPU")
+    return device
+
+
 def _as_tensor(x, device) -> torch.Tensor:
     """A tensor stays where it is; anything else goes to ``device``
-    (default CPU), with float64 narrowed to float32 as the JAX package's
-    32-bit mode does."""
+    (``resolve_device``: the card unless asked), with float64 narrowed to
+    float32 as the JAX package's 32-bit mode does."""
     if isinstance(x, torch.Tensor):
         return x
     a = np.asarray(x)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.as_tensor(a, device=device or torch.device("cpu"))
+    return torch.as_tensor(a, device=resolve_device(device))
 
 
 def render_frame(depth, camera=None, params=None, normals=None, color=None,
@@ -197,8 +211,9 @@ def render_frame(depth, camera=None, params=None, normals=None, color=None,
 
     Returns the AO buffer (or AO-multiplied ``color``), with the debug dict
     when ``debug_outputs``.  Tensors are computed on the device they are
-    on; NumPy input is placed on ``device`` (default CPU), NumPy normals
-    and colour on the depth's device.  ``normals`` (used with
+    on; NumPy input is placed on ``device`` (default the card, ``"cuda"``;
+    ``device="cpu"`` runs the plain versions on the CPU), NumPy normals and
+    colour on the depth's device.  ``normals`` (used with
     ``params.use_normals``) are channel-last (..., H, W, 3) or
     channel-first (..., 3, H, W), batched like ``depth``.  ``out_dtype``:
     ``"float32"``, ``"bfloat16"`` or ``"uint8"``.
@@ -216,7 +231,8 @@ def render_frame(depth, camera=None, params=None, normals=None, color=None,
 
 def single_scale_ao(depth, camera=None, params=None, impl: str = "auto",
                     device=None) -> torch.Tensor:
-    """[BJ] config 1: AO at 1/2 input resolution, no blur (ceil halves)."""
+    """[BJ] config 1: AO at 1/2 input resolution, no blur (ceil halves).
+    NumPy input goes to ``device`` (default the card)."""
     camera = camera or CameraParams()
     params = (params or AOParams()).replace(hierarchy_depth=1,
                                             enable_blur=False)
@@ -320,7 +336,8 @@ def render_frame_temporal(depth, state=None, camera=None, params=None,
     per-pixel motion-vector buffer (H, W, 2) or (2, H, W) in pixels,
     current->previous.  ``resolve_level``: 0 resolves at full res (the
     spec), 1 resolves the level-1 field before the final upsample (half-res
-    history).  NumPy input goes to ``device`` (default CPU).  Returns
+    history).  NumPy input goes to ``device`` (default the card, as in
+    ``render_frame``).  Returns
     ``(output, new_state)``.
     """
     camera = camera or CameraParams()
@@ -357,7 +374,8 @@ def render_sequence_temporal(depths, camera=None, params=None, tparams=None,
     mapping frame t's eye space to frame t-1's (``motions[0]`` is ignored:
     frame 0 has the null history), or per-pixel motion-vector buffers
     (T, H, W, 2) / (T, 2, H, W).  ``normals``: (T, ...) per frame.
-    ``resolve_level`` as in ``render_frame_temporal``.
+    ``resolve_level`` as in ``render_frame_temporal``.  NumPy input goes
+    to ``device`` (default the card, as in ``render_frame``).
     """
     _check_resolve_level(resolve_level)
     camera = camera or CameraParams()
@@ -398,13 +416,16 @@ class AmbientOcclusionEngine:
 
     PyTorch runs eagerly, so there is no program cache: changing a tunable
     or the frame size costs nothing.  Tensors are computed on the device
-    they are on; NumPy input runs on the CPU.
+    they are on; NumPy input goes to ``device`` (default the card, as in
+    ``render_frame``; ``device="cpu"`` for the CPU).
     """
 
     def __init__(self, camera: CameraParams | None = None,
                  params: AOParams | None = None, impl: str = "auto",
-                 debug: bool = False, out_dtype: str = "float32"):
+                 debug: bool = False, out_dtype: str = "float32",
+                 device=None):
         _check_impl(impl)
+        self.device = device  # where NumPy input goes (None: the card)
         self.camera = camera or CameraParams()
         self._params = (params or AOParams()).validate()
         self.impl = impl
@@ -452,7 +473,8 @@ class AmbientOcclusionEngine:
     def render(self, depth, normals=None, color=None, debug_outputs=False):
         if self.debug and color is not None:
             out = render_frame(depth, self.camera, self._params, normals,
-                               None, debug_outputs, self.impl)
+                               None, debug_outputs, self.impl,
+                               device=self.device)
             ao, dbg = out if debug_outputs else (out, None)
             # channel count from the colour frame only when it has a
             # channel axis (a 2-D grayscale frame's shape[-1] is W)
@@ -461,7 +483,7 @@ class AmbientOcclusionEngine:
             return (view, dbg) if debug_outputs else view
         return render_frame(depth, self.camera, self._params, normals,
                             color, debug_outputs, self.impl,
-                            out_dtype=self.out_dtype)
+                            out_dtype=self.out_dtype, device=self.device)
 
     __call__ = render
 
@@ -485,8 +507,9 @@ class TemporalAOEngine(AmbientOcclusionEngine):
                  params: AOParams | None = None,
                  tparams: TemporalParams | None = None,
                  impl: str = "auto", out_dtype: str = "float32",
-                 resolve_level: int = 0):
-        super().__init__(camera, params, impl=impl, out_dtype=out_dtype)
+                 resolve_level: int = 0, device=None):
+        super().__init__(camera, params, impl=impl, out_dtype=out_dtype,
+                         device=device)
         self._tparams = (tparams or TemporalParams()).validate()
         _check_resolve_level(resolve_level)
         self._resolve_level = resolve_level
@@ -538,7 +561,8 @@ class TemporalAOEngine(AmbientOcclusionEngine):
         out, self._state = render_frame_temporal(
             depth, self._state, self.camera, self._params, self._tparams,
             motion=motion, normals=normals, color=color, impl=self.impl,
-            out_dtype=self.out_dtype, resolve_level=self._resolve_level)
+            out_dtype=self.out_dtype, resolve_level=self._resolve_level,
+            device=self.device)
         return out
 
     __call__ = render

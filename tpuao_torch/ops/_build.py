@@ -27,7 +27,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
            "render_dma.cu", "fused_zc.cu")
-HEADERS = ("common.cuh", "chain_step.cuh", "ring.cuh")
+HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh", "ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,35 +69,51 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _source_hash(nvcc: str) -> str:
+def _files(csrc: pathlib.Path) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(sources, headers) of a kernel directory: the package's own lists
+    for ``CSRC``; every ``*.cu`` and ``*.cuh`` of another one (an older
+    tree's kernels, built to time them beside these)."""
+    if csrc == CSRC:
+        return SOURCES, HEADERS
+    return (tuple(sorted(p.name for p in csrc.glob("*.cu"))),
+            tuple(sorted(p.name for p in csrc.glob("*.cuh"))))
+
+
+def _source_hash(nvcc: str, csrc: pathlib.Path) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for names in _files(csrc):
+        for name in names:
+            h.update(name.encode())
+            h.update((csrc / name).read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources lives (built or not)."""
-    return BUILD_DIR / f"libtpuao_kernels_{_source_hash(find_nvcc())}.so"
+def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Where the library for the sources in ``csrc`` lives (built or
+    not)."""
+    digest = _source_hash(find_nvcc(), pathlib.Path(csrc).resolve())
+    return BUILD_DIR / f"libtpuao_kernels_{digest}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the sources unless the current build exists; returns the
-    library path.  Each source compiles to an object in its own ``nvcc``
-    process, all at once, then one ``nvcc -shared`` links them.  The
-    compilers' output (with ``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside the library as ``.log``."""
+def build(csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Compile the sources in ``csrc`` (the package's own by default)
+    unless that build exists; returns the library path.  Each source
+    compiles to an object in its own ``nvcc`` process, all at once, then
+    one ``nvcc -shared`` links them.  The compilers' output (with
+    ``-Xptxas -v``: registers, shared memory and spills per kernel) is
+    kept beside the library as ``.log``."""
+    csrc = pathlib.Path(csrc).resolve()
     nvcc = find_nvcc()
-    lib = library_path()
+    lib = library_path(csrc)
     if lib.exists():
         return lib
+    sources = _files(csrc)[0]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
-                for s, o in zip(SOURCES, objs)]
+        objs = [os.path.join(tmp, s + ".o") for s in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(csrc / s)]
+                for s, o in zip(sources, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
@@ -120,9 +136,9 @@ def build() -> pathlib.Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def load(csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(csrc)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -34,8 +34,9 @@ def render_views(depths, camera=None, params=None, normals=None,
     [+ ``normals`` (V, H, W, 3) or (V, 3, H, W)] -> AO (V, H, W) float32.
 
     Tensors are computed on the device they are on; NumPy input goes to
-    ``device`` (default CPU).  For colour, ``out_dtype`` or debug outputs
-    on a batch use ``render_frame``, which takes the same leading axis.
+    ``device`` (default the card; ``device="cpu"`` for the CPU).  For
+    colour, ``out_dtype`` or debug outputs on a batch use
+    ``render_frame``, which takes the same leading axis.
     """
     camera = camera or CameraParams()
     params = params or AOParams()

@@ -3,8 +3,8 @@
 Counterpart of ``tpuao/serving.py``, with the same routes, rules, status
 codes and wire format, so a client of either server talks to both.  One
 ``AmbientOcclusionEngine`` per process; decoded frames go to the server's
-``device`` (``make_server(device=...)``, default CPU), and on a CUDA device
-every render goes through the port's kernels.  PyTorch runs eagerly, so
+``device`` (``make_server(device=...)``, default the card), and on a CUDA
+device every render goes through the port's kernels.  PyTorch runs eagerly, so
 nothing compiles: a tunable, a camera or a frame shape costs the same on
 its first request as on its hundredth.
 
@@ -73,7 +73,8 @@ import torch
 
 from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
                                          TemporalAOEngine, render_frame,
-                                         render_frame_temporal)
+                                         render_frame_temporal,
+                                         resolve_device)
 from tpuao_torch.params import (PARAM_RANGES, TEMPORAL_PARAM_RANGES,
                                 CameraParams, TemporalParams,
                                 params_to_dict)
@@ -546,11 +547,12 @@ class AOServer(ThreadingHTTPServer):
 
 def make_server(port: int = 0, engine: AmbientOcclusionEngine | None = None,
                 verbose: bool = False, batch_size: int = 0, mesh=None,
-                device="cpu") -> AOServer:
+                device="cuda") -> AOServer:
     """Build (not start) the server on 127.0.0.1; ``port=0`` picks a free
-    port.  Decoded frames go to ``device`` ("cpu", "cuda", a
-    ``torch.device``); on a CUDA device every render launches the
-    kernels.  ``batch_size > 0`` routes default-tunable requests through a
+    port.  Decoded frames go to ``device`` ("cuda", the default, "cpu",
+    a ``torch.device``); on a CUDA device every render launches the
+    kernels, and with no card there this raises.  ``batch_size > 0``
+    routes default-tunable requests through a
     ``utils.batching.MicroBatcher``; requests that override tunables or
     the camera render directly.  ``mesh`` is accepted only as None: the
     view-sharded fleet is ROADMAP item 9 (multi-GPU)."""
@@ -558,9 +560,7 @@ def make_server(port: int = 0, engine: AmbientOcclusionEngine | None = None,
         raise NotImplementedError(
             "make_server(mesh=...): view-sharded serving across cards is "
             "not ported yet (ROADMAP item 9, multi-GPU)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device here")
+    device = resolve_device(device)
     srv = AOServer(("127.0.0.1", port), AOHandler)
     srv.device = device
     srv.engine = engine or AmbientOcclusionEngine(
@@ -600,16 +600,15 @@ def make_server(port: int = 0, engine: AmbientOcclusionEngine | None = None,
     return srv
 
 
-def main(argv=None) -> None:
-    """``python -m tpuao_torch.serving [port] [--device cuda] ...``: the
-    front end of ``examples/serve.py`` for the port."""
+def build_parser():
+    """The command line of ``python -m tpuao_torch.serving``."""
     import argparse
 
     ap = argparse.ArgumentParser(description="tpuao_torch AO serving "
                                  "endpoint (PyTorch / CUDA)")
     ap.add_argument("port", nargs="?", type=int, default=8080)
-    ap.add_argument("--device", default="cpu",
-                    help="where frames render: cpu (default) or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="where frames render: cuda (default) or cpu")
     ap.add_argument("--config", help="engine config JSON (save_config)")
     ap.add_argument("--batch", type=int, default=0,
                     help="micro-batch size for default-tunable requests")
@@ -621,6 +620,14 @@ def main(argv=None) -> None:
                     "temporal,temporal_l1}; every combination of normals "
                     "and color is warmed, 'temporal' adds the ?session= "
                     "paths")
+    return ap
+
+
+def main(argv=None) -> None:
+    """``python -m tpuao_torch.serving [port] [--device cpu] ...``: the
+    front end of ``examples/serve.py`` for the port (frames render on the
+    card unless ``--device cpu``)."""
+    ap = build_parser()
     a = ap.parse_args(argv)
     if a.warmup_buffers and not a.warmup:
         ap.error("--warmup-buffers needs --warmup HxW")
