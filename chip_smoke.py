@@ -7,7 +7,8 @@ Phases, one or more lines each:
 
 1. build   -- compile ``tpuao_torch/csrc`` with nvcc (sm_90a) and print the
               build time and each kernel's registers, shared memory and
-              spills (a spill in the tiled render or fused kernel fails);
+              spills (a spill in the tiled render, upsample, fused or
+              zero-copy kernel fails);
 2. card    -- the card's name and power limit, from nvidia-smi;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the 1080p main path's shapes (max_abs_err <= 1e-5);
@@ -47,20 +48,26 @@ Phases, one or more lines each:
               each response equal to the direct render on the card, with
               the launch counts of the run, /stats latency and one
               request's decode/render/encode split;
-12. parent -- the render (depth-only, normals) and fused kernels at the
-              1080p, 4K and 8K shapes, device time per call from CUDA-graph
-              replay, beside the computed bound and the roofline share, and
-              the HIGH and ULTRA paths at four 1080p frames a call (device
-              time by torch.profiler), each beside the same kernels built
-              from an older tree's ``tpuao_torch/csrc`` (``--parent DIR``;
-              by default ``tpuao_torch/_build/parent_csrc`` where that
-              exists), timed in turns (parent, new, new, parent); then the
+12. parent -- the kernels at the 1080p, 4K and 8K shapes: the render
+              (depth-only, normals), the DMA render, the upsample step (the
+              ULTRA chain of four steps at four 1080p frames, the 4K step
+              1->0 with pre-min, HIGH's 4->3 at one frame), the fused and
+              zero-copy steps side by side (and their ratio), the windowed
+              resolve; device time per call from CUDA-graph replay, beside
+              the computed bound and the roofline share, and the HIGH and
+              ULTRA paths at four 1080p frames a call (device time by
+              torch.profiler), each beside the same kernels built from an
+              older tree's ``tpuao_torch/csrc`` (``--parent DIR``; by
+              default ``tpuao_torch/_build/parent_csrc`` where that
+              exists), timed in turns (parent, new, new, parent), with
+              each kernel's output held against the older one's; then the
               device time by kernel and the idle share of the HIGH path at
               one and four frames a call and of the ULTRA path.
 
 Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
-path, worst error, event time beside its plain version's, computed bound
-and library call: none), the nvidia-smi line, and last
+path, worst error, device time by graph replay as ``ms`` with the event
+time beside it as ``event_ms``, its plain version's event time, computed
+bound and library call: none), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
 nor the JAX package.
@@ -491,7 +498,7 @@ def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
     from tpuao_torch.models.presets import preset
     from tpuao_torch.params import AOParams, TemporalParams
     from tpuao_torch.utils.camera import relative_motion
-    from tpuao_torch.utils.timing import cuda_time_ms
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
 
     print(f"times, new paths [{card}]:")
     ultra = AmbientOcclusionEngine(cam, preset("ULTRA"))
@@ -550,9 +557,11 @@ def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
     }
     kms = {}
     for name, (kern, plain) in timed.items():
-        kms[name] = (cuda_time_ms(kern), cuda_time_ms(plain))
-        print(f"  {name}: kernel {kms[name][0]:.4f} ms, plain "
-              f"{kms[name][1]:.4f} ms [{card}]", flush=True)
+        kms[name] = (cuda_time_ms(kern), cuda_time_ms(plain),
+                     cuda_graph_ms(kern))
+        print(f"  {name}: kernel {kms[name][0]:.4f} ms (events), "
+              f"{kms[name][2]:.4f} ms (device, graph replay), plain "
+              f"{kms[name][1]:.4f} ms (events) [{card}]", flush=True)
     return kms
 
 
@@ -619,7 +628,7 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     import torch
 
     from tpuao_torch.params import AOParams
-    from tpuao_torch.utils.timing import cuda_time_ms
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
 
     print(f"variants (render_ao_level_dma, fused_render_upsample_step_zc) "
           f"[{card}]:")
@@ -694,10 +703,20 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
               f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
               flush=True)
     print("  row_tile invariance: 3 settings each, exact")
-    del pyr4k, pyr8k, c, c8, dma_in, zc_in, dma_out, zc_out
+    d, fw = dma_in["1080p"]
+    ds, c1, hi, l, fw1, crop = zc_in["1080p 1->0"]
+    graph = {"dma": cuda_graph_ms(
+                 lambda: K.render_ao_level_dma(d, 1, fw, cam, par)),
+             "zc": cuda_graph_ms(
+                 lambda: K.fused_render_upsample_step_zc(
+                     ds, c1, hi, l, fw1, cam, par, crop_hw=crop))}
+    print(f"  1080p level 1 dma {graph['dma']:.4f} ms, 1080p 1->0 zc "
+          f"{graph['zc']:.4f} ms (device, graph replay) [{card}]")
+    del pyr4k, pyr8k, c, c8, dma_in, zc_in, dma_out, zc_out, d, ds, c1, hi
     torch.cuda.empty_cache()
-    return run, {"dma": (ms["1080p"][0], ms["1080p"][2]),
-                 "zc": (ms["1080p 1->0"][0], ms["1080p 1->0"][2])}
+    return run, {"dma": (ms["1080p"][0], ms["1080p"][2], graph["dma"]),
+                 "zc": (ms["1080p 1->0"][0], ms["1080p 1->0"][2],
+                        graph["zc"])}
 
 
 def phase_serving(chk, dev, K, F, cam, card):
@@ -862,13 +881,16 @@ def kernel_library(lib):
 
 
 def phase_parent(dev, K, P, R, F, cam, card, parent):
-    """12. The redesigned kernels (the render in its depth-only and slope
-    modes, the fused step) and the DMA render at the 1080p, 4K and 8K
-    shapes, and the HIGH and ULTRA paths end to end at four 1080p frames a
-    call: device ms per call from CUDA-graph replay, with each kernel's
-    computed bound and roofline share, beside the kernels of ``parent`` (a
-    ``tpuao_torch/csrc`` directory of an older tree, or None), timed in
-    turns: parent, new, new, parent."""
+    """12. The kernels at the 1080p, 4K and 8K shapes -- the render in its
+    depth-only and slope modes, the DMA render, the upsample step (the
+    ULTRA chain of four steps at four 1080p frames, the 4K step 1->0 with
+    pre-min, HIGH's 4->3 at one frame), the fused and zero-copy steps side
+    by side, the windowed resolve -- and the HIGH and ULTRA paths end to
+    end at four 1080p frames a call: device ms per call from CUDA-graph
+    replay, with each kernel's computed bound and roofline share, beside
+    the kernels of ``parent`` (a ``tpuao_torch/csrc`` directory of an older
+    tree, or None), timed in turns: parent, new, new, parent; each kernel's
+    output is held against the parent's (max |new - parent|)."""
     import numpy as np
     import torch
 
@@ -909,26 +931,81 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
         z, sl, _, wp = npyr[k]
 
         def fn():
-            for l in range(1, 5):
-                K.render_ao_level_normals(z[l], l, wp, cam, pn,
-                                          slopes_ds=sl[l])
+            return [K.render_ao_level_normals(z[l], l, wp, cam, pn,
+                                              slopes_ds=sl[l])
+                    for l in range(1, 5)][-1]
         works = [render_work(z[l].shape, planes=2) for l in range(1, 5)]
         return fn, tuple(map(sum, zip(*works)))
 
+    full = {"1080p": (1080, 1920), "4K": (2160, 3840), "8K": (4320, 7680)}
+
     def fused(k, levels):
         (z, wp), c = pyr[k], chains[k]
-        hw = {"1080p": (1080, 1920), "4K": (2160, 3840),
-              "8K": (4320, 7680)}[k]
+        hw = full[k]
 
         def fn():
             for l in levels:
-                K.fused_render_upsample_step(z[l], c[l], z[l - 1], l, wp,
-                                             cam, par,
-                                             crop_hw=hw if l == 1 else None)
+                out = K.fused_render_upsample_step(
+                    z[l], c[l], z[l - 1], l, wp, cam, par,
+                    crop_hw=hw if l == 1 else None)
+            return out
         works = [chain_work(z[l].shape, *(hw if l == 1 else
                                           tuple(z[l - 1].shape)),
                             npairs=34) for l in levels]
         return fn, tuple(map(sum, zip(*works)))
+
+    def zc(k):
+        (z, wp), c = pyr[k], chains[k]
+        return (lambda: K.fused_render_upsample_step_zc(
+                    z[1], c[1], z[0], 1, wp, cam, par, crop_hw=full[k]),
+                chain_work(z[1].shape, *full[k], npairs=34))
+
+    # the upsample step's inputs: each level's AO (the render kernel's;
+    # the ULTRA chain's come from the normals render, at the same shapes)
+    zu, _, _, wpu = npyr["1080p x4"]
+    aos = {l: K.render_ao_level(zu[l], l, wpu, cam, par) for l in range(1, 5)}
+    ao4k1 = K.render_ao_level(pyr["4K"][0][1], 1, pyr["4K"][1], cam, par)
+    ao1080_4 = K.render_ao_level(pyr["1080p"][0][4], 4, pyr["1080p"][1], cam,
+                                 par)
+
+    def upsample_chain():  # the ULTRA path's chain, pipeline.py's calls
+        def fn():
+            c = aos[4]
+            for l in (4, 3, 2, 1):
+                c = K.blur_upsample_step(
+                    c, zu[l], zu[l - 1], par, wpu,
+                    lo_ao2=None if l == 4 else aos[l],
+                    crop_hw=full["1080p"] if l == 1 else None)
+            return c
+        works = [chain_work(zu[l].shape, *(full["1080p"] if l == 1 else
+                                           tuple(zu[l - 1].shape[-2:])),
+                            lo_inputs=2 if l == 4 else 3)
+                 for l in (4, 3, 2, 1)]
+        return fn, tuple(map(sum, zip(*works)))
+
+    def upsample_4k():  # the step 1->0 with pre-min, as the pallas path
+        (z, wp), c = pyr["4K"], chains["4K"]
+        return (lambda: K.blur_upsample_step(c[1], z[1], z[0], par, wp,
+                                             lo_ao2=ao4k1,
+                                             crop_hw=full["4K"]),
+                chain_work(z[1].shape, *full["4K"], lo_inputs=3))
+
+    def upsample_43():  # HIGH's one upsample launch, one frame
+        z, wp = pyr["1080p"]
+        return (lambda: K.blur_upsample_step(ao1080_4, z[4], z[3], par, wp),
+                chain_work(z[4].shape, *z[3].shape))
+
+    rng = np.random.default_rng(SEED)
+
+    def windowed(h, w, r):
+        ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        f = [torch.as_tensor(rng.uniform(lo, hi, (h, w)), dtype=torch.float32,
+                             device=dev) for lo, hi in ((0, 1), (0.05, 1))]
+        ip = (ii + 1.3).expand(h, w).contiguous()
+        jp = (jj - 2.7).expand(h, w).contiguous()
+        return (lambda: K.windowed_resolve(f[0], f[1], ip, jp, r),
+                (h * w * WINDOWED_OPS, 4 * 6 * h * w))
 
     cases = {
         ("render", "1080p level 4"): render("1080p", 4),
@@ -938,9 +1015,19 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
         ("dma", "8K level 1"): dma("8K"),
         ("render_normals", "1080p levels 1-4 x4"): normals("1080p x4"),
         ("render_normals", "4K levels 1-4"): normals("4K"),
+        ("upsample", "ULTRA 1080p chain x4 (4->3 .. 1->0)"):
+            upsample_chain(),
+        ("upsample", "4K step 1->0, pre-min"): upsample_4k(),
+        ("upsample", "HIGH 1080p 4->3, 1 frame"): upsample_43(),
         ("fused", "1080p steps 3->2, 2->1, 1->0"): fused("1080p", (3, 2, 1)),
+        ("fused", "1080p step 1->0"): fused("1080p", (1,)),
+        ("zc", "1080p step 1->0"): zc("1080p"),
         ("fused", "4K step 1->0"): fused("4K", (1,)),
+        ("zc", "4K step 1->0"): zc("4K"),
         ("fused", "8K step 1->0"): fused("8K", (1,)),
+        ("zc", "8K step 1->0"): zc("8K"),
+        ("windowed", "1080p r=4"): windowed(1080, 1920, 4),
+        ("windowed", "8K r=4"): windowed(4320, 7680, 4),
     }
     # end to end: the main path and the ULTRA path, four frames a call
     from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
@@ -985,9 +1072,15 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
             b_ms, b_by = bound(*work)
             line += (f", bound {b_ms:.4f} ms ({b_by}), roofline share "
                      f"{b_ms / new:.1%}")
+            if "parent" in libs:
+                line += f", max |new - parent| {parent_diff(libs, fn):.3e}"
         line += f" [{card}]"
         print(line, flush=True)
         out[(kern, shape)] = ms
+    for k in full:  # the zero-copy step beside the tiled one, same call
+        ratio = (sum(out[("zc", f"{k} step 1->0")]["new"]) /
+                 sum(out[("fused", f"{k} step 1->0")]["new"]))
+        print(f"  zc / fused, {k} step 1->0: {ratio:.3f}x [{card}]")
     # where the time goes: device time by kernel, and the idle share
     for label, fn in (("HIGH auto 1080p, 1 frame a call",
                        lambda: render_frame(frames[:1], cam_hw, par)),
@@ -996,9 +1089,24 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
                       ("ULTRA 1080p, 4 frames a call",
                        lambda: ultra.render(z4, normals=n4))):
         device_breakdown(label, fn, card)
-    del pyr, chains, npyr, frames, z4, n4
+    del pyr, chains, npyr, frames, z4, n4, aos, ao4k1, ao1080_4, cases
     torch.cuda.empty_cache()
     return out
+
+
+def parent_diff(libs, fn) -> float:
+    """Max |new - parent| of ``fn``'s output (a tensor or a tuple of
+    them), run once with each library."""
+    import torch
+
+    got = {}
+    for which in ("new", "parent"):
+        with kernel_library(libs[which]):
+            o = fn()
+        got[which] = o if isinstance(o, tuple) else (o,)
+    torch.cuda.synchronize()
+    return max(float((a - b).abs().max())
+               for a, b in zip(got["new"], got["parent"]))
 
 
 def device_profile(fn, calls=20):
@@ -1064,7 +1172,7 @@ def main(argv=None) -> int:
     from tpuao_torch.ops import prepare as P
     from tpuao_torch.params import AOParams, CameraParams, padded_shape
     from tpuao_torch.utils import fixtures as F
-    from tpuao_torch.utils.timing import cuda_time_ms
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # no matmul/conv on the
@@ -1077,9 +1185,23 @@ def main(argv=None) -> int:
     for k in ptxas_report(lib.with_suffix(".log").read_text()):
         print(f"  {k['name']}: {k['regs']} registers, {k['smem']} B shared, "
               f"{k['spill']} B spilled")
-        tiled = k["name"].startswith(("render_kernel", "fused_step_kernel"))
+        tiled = k["name"].startswith(("render_kernel", "fused_step_kernel",
+                                      "upsample_kernel", "fused_zc_kernel"))
         if tiled and k["spill"]:
             raise RuntimeError(f"{k['name']} spills {k['spill']} bytes")
+    # the chain stages' branch-free reciprocal and division against the
+    # IEEE operations (csrc/selftest.cu): every float with a normal
+    # reciprocal, 2^30 quotients
+    lib_ = _build.load()
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    _build.check(lib_, lib_.tpuao_check_division(
+        bad.data_ptr(), 0, torch.cuda.current_stream(dev).cuda_stream),
+        "tpuao_check_division")
+    n_rcp, n_div = bad.tolist()
+    print(f"  rcp_rn vs IEEE reciprocal, 2,113,929,216 floats: {n_rcp} "
+          f"mismatches; div_rn vs IEEE division, 2^30 pairs: {n_div}")
+    if n_rcp or n_div:
+        raise RuntimeError("the chain stages' division differs from IEEE")
 
     # 2. card
     card = _card()
@@ -1248,9 +1370,11 @@ def main(argv=None) -> int:
     }
     ms = {}
     for name, (kern, plain) in timed.items():
-        ms[name] = (cuda_time_ms(kern), cuda_time_ms(plain))
-        print(f"  {name}: kernel {ms[name][0]:.4f} ms, plain "
-              f"{ms[name][1]:.4f} ms [{card}]", flush=True)
+        ms[name] = (cuda_time_ms(kern), cuda_time_ms(plain),
+                    cuda_graph_ms(kern))
+        print(f"  {name}: kernel {ms[name][0]:.4f} ms (events), "
+              f"{ms[name][2]:.4f} ms (device, graph replay), plain "
+              f"{ms[name][1]:.4f} ms (events) [{card}]", flush=True)
     l1 = (cuda_time_ms(lambda: K.render_ao_level(pyr[1], 1, wp, cam, par)),
           cuda_time_ms(lambda: K.render_ao_level_plain(pyr[1], 1, wp, cam,
                                                        par)))
@@ -1320,8 +1444,9 @@ def main(argv=None) -> int:
         b_ms, b_by = bound(*work[key])
         kernels.append({"name": fn, "route": "cuda", "source": src,
                         "replaces": rep, "launches": run[fn],
-                        "max_abs_err": chk.worst[key], "ms": ms[key][0],
-                        "plain_ms": ms[key][1], "bound_ms": b_ms,
+                        "max_abs_err": chk.worst[key], "ms": ms[key][2],
+                        "event_ms": ms[key][0], "plain_ms": ms[key][1],
+                        "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
     print(f"library calls: {NO_LIBRARY}")
     for k in kernels:

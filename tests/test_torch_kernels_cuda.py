@@ -422,3 +422,83 @@ def test_timing_reads_the_device(dev):
     ms = cuda_time_ms(lambda: K.render_ao_level(z, 1, 1920, CAM, AOParams()),
                       warmup=1, iters=5)
     assert 0.0 < ms < 1000.0
+
+
+UPSAMPLE_SIZES = TILED_SIZES + [(68, 120), (21, 61), (22, 62)]  # + the
+# 1080p level 4 (HIGH's step 4->3) and a 21-row, 61-column lo tile and one
+# texel past it (the upsample tile: (8*NT - 3) x 61 lo texels)
+
+
+@pytest.mark.parametrize("lh,lw", UPSAMPLE_SIZES)
+def test_tiled_upsample_against_plain_and_single_frames(dev, lh, lw):
+    """The tiled upsample step with and without pre-min and blend, uncropped
+    and with odd crops, at batch 3 (three texels a thread on large grids)
+    and one frame: within 3e-7 of its plain version (the chain stages'
+    rounding, as the fused step's) and batch members equal to single
+    frames bit for bit."""
+    lo = uniform(dev, (3, lh, lw), 0.0, 1.0, 40)
+    lo2 = uniform(dev, (3, lh, lw), 0.0, 1.0, 41)
+    lo_d = uniform(dev, (3, lh, lw), 0.2, 0.8, 42)
+    hi_d = (lo_d.repeat_interleave(2, -2).repeat_interleave(2, -1)
+            + uniform(dev, (3, 2 * lh, 2 * lw), -0.01, 0.01, 43)).contiguous()
+    blend = uniform(dev, (3, 2 * lh, 2 * lw), 0.0, 1.0, 44)
+    for use2 in (False, True):
+        for use_blend in (False, True):
+            for crop in (None, (2 * lh - 1, 2 * lw - 1), (2 * lh, 2 * lw - 3)):
+                kw = dict(lo_ao2=lo2 if use2 else None,
+                          hi_ao_blend=blend if use_blend else None,
+                          crop_hw=crop)
+                args = (lo, lo_d, hi_d, AOParams(), 8 * lw)
+                got = K.blur_upsample_step(*args, **kw)
+                close(got, K.blur_upsample_step_plain(*args, **kw), 3e-7)
+                one = {k: (v[1] if isinstance(v, torch.Tensor) else v)
+                       for k, v in kw.items()}
+                close(K.blur_upsample_step(lo[1], lo_d[1], hi_d[1],
+                                           AOParams(), 8 * lw, **one),
+                      got[1], 0.0)
+
+
+def test_upsample_ultra_chain_shapes_batched(dev):
+    """The ULTRA chain's four steps at four 1080p frames (pre-min from
+    level 3 down, cropped to 1080 x 1920 at the last), each within 1e-6
+    of its plain version on the same inputs: the kernel contracts its
+    sums into FMAs where the plain version rounds each product, which
+    over 2.8 M lo texels reaches three ulp of 1.0 (3.6e-7 measured)."""
+    z, _ = normals_scene(dev, 1088, 1920, batch=4)
+    pyr = [lvl.contiguous() for lvl in P.build_pyramid(z, 4)]
+    aos = {l: K.render_ao_level(pyr[l], l, 1920, CAM, AOParams())
+           for l in range(1, 5)}
+    c = aos[4]
+    for l in (4, 3, 2, 1):
+        kw = dict(lo_ao2=None if l == 4 else aos[l],
+                  crop_hw=(1080, 1920) if l == 1 else None)
+        got = K.blur_upsample_step(c, pyr[l], pyr[l - 1], AOParams(), 1920,
+                                   **kw)
+        close(got, K.blur_upsample_step_plain(c, pyr[l], pyr[l - 1],
+                                              AOParams(), 1920, **kw), 1e-6)
+        c = got
+
+
+@pytest.mark.parametrize("lh,lw", [(13, 61), (21, 62), (42, 123),
+                                   (90, 61), (105, 122)])
+def test_fused_zc_tile_edges_and_row_tiles(dev, lh, lw):
+    """The zero-copy step at sizes on and one past its tile (13 or 21 lo
+    rows a step, 61 lo columns a strip), over several segments (R = 40
+    and 100 take three texels a thread, R = 64 two): bit-equal to the
+    tiled fused step for every row_tile, within 3e-7 of its plain
+    version, batch members equal to single frames."""
+    ds = uniform(dev, (2, lh, lw), 0.2, 0.8, 50)
+    c1 = uniform(dev, (2, lh, lw), 0.3, 1.0, 51)
+    hi = uniform(dev, (2, 2 * lh, 2 * lw), 0.2, 0.8, 52)
+    for crop in (None, (2 * lh - 1, 2 * lw - 1)):
+        args = (ds, c1, hi, 1, 4 * lw, CAM, AOParams())
+        sib = K.fused_render_upsample_step(*args, crop_hw=crop)
+        close(sib, K.fused_render_upsample_step_plain(*args, crop_hw=crop),
+              3e-7)
+        for rt in (1, 40, 64, 100, 1000):
+            got = K.fused_render_upsample_step_zc(*args, row_tile=rt,
+                                                  crop_hw=crop)
+            close(got, sib, 0.0)
+        one = K.fused_render_upsample_step_zc(ds[1], c1[1], hi[1], 1, 4 * lw,
+                                              CAM, AOParams(), crop_hw=crop)
+        close(one, sib[1], 0.0)

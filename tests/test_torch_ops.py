@@ -247,6 +247,74 @@ def test_noise_filter_and_bilateral_match_jax():
         got, G.bilateral_upsample2x(lo1, lo_d, hi_d, 0.9, 1e-7), **GTOL)
 
 
+# The CUDA chain stages (csrc/chain_step.cuh) form each weight g / x, g a
+# power of two (the filter's [1,2,1]^2 taps, the 2x's wr*wc), as
+# g * (1/x) with a correctly rounded reciprocal, and take the filter's
+# centre weight as 4 without a division.  These emulate that form in
+# float32 and hold it bit for bit against the plain stages and against
+# one correctly rounded division.  (PyTorch's own ``float / tensor`` is
+# ``tensor.reciprocal() * float``, so the plain stages are that form too.)
+
+def _stage_weight(g, x):
+    return g * torch.reciprocal(x)
+
+
+def _div_weight(g, x):
+    return torch.full_like(x, g) / x
+
+
+def _noise_filter_with(lo_ao, lo_d, nfs, weight, divide_centre):
+    acc = torch.zeros_like(lo_ao)
+    wacc = torch.zeros_like(lo_ao)
+    for dy, dx, g in U._NOISE_TAPS:
+        dd = U._shift2d(lo_d, dy, dx) - lo_d
+        if dy == dx == 0 and not divide_centre:
+            wt = torch.full_like(dd, g)
+        else:
+            wt = weight(g, 1.0 + nfs * dd * dd)
+        acc = acc + wt * U._shift2d(lo_ao, dy, dx)
+        wacc = wacc + wt
+    return acc / wacc
+
+
+def _bilateral_planes_with(taps, hi_d, k_blur, k_up, weight):
+    planes = []
+    for p in (0, 1):
+        for q in (0, 1):
+            hd = hi_d[..., p::2, q::2]
+            acc = torch.zeros_like(hd)
+            wacc = torch.zeros_like(hd)
+            for dr in range(p + 1):
+                for dc in range(q + 1):
+                    a, d = taps[(dr, dc)]
+                    dd = d - hd
+                    wt = weight(0.5 ** (p + q), dd * dd / k_blur + k_up)
+                    acc = acc + wt * a
+                    wacc = wacc + wt
+            planes.append(acc / torch.clamp(wacc, min=1e-30))
+    return planes
+
+
+@pytest.mark.parametrize("nfs,k_blur,k_up", [
+    (50.0, 0.9, 1e-7), (1e4, 1e-30, 1e-12), (0.5, 3.0, 0.7)])
+def test_chain_stage_weights_equal_the_plain_division(nfs, k_blur, k_up):
+    lo1, lo_d, hi_d, _, _ = _step_inputs(16, 24, 9)
+    a, d = (U._edge_pad(t32(x), 0, 1, 0, 1) for x in (lo1, lo_d))
+    f = _noise_filter_with(a, d, nfs, _stage_weight, divide_centre=False)
+    assert torch.equal(f, U.noise_filter(a, d, nfs))
+    assert torch.equal(f, _noise_filter_with(a, d, nfs, _div_weight,
+                                             divide_centre=True))
+    lh, lw = lo_d.shape
+    taps = {(dr, dc): (f[dr: dr + lh, dc: dc + lw], d[dr: dr + lh, dc: dc + lw])
+            for dr in (0, 1) for dc in (0, 1)}
+    got = _bilateral_planes_with(taps, t32(hi_d), k_blur, k_up, _stage_weight)
+    for want in (U._bilateral_planes(taps, t32(hi_d), k_blur, k_up),
+                 _bilateral_planes_with(taps, t32(hi_d), k_blur, k_up,
+                                        _div_weight)):
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
 def test_upsample_k_blur_floor_gives_finite_frame():
     """blur_tolerance = log10(1/step_size) makes k_blur exactly 0 but for
     its 1e-30 floor; dd == 0 taps must not give 0/0."""

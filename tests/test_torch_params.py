@@ -7,6 +7,7 @@ equal to the JAX package's, and check that importing the port loads no JAX.
 """
 
 import dataclasses
+import importlib.util
 import json
 import re
 import subprocess
@@ -352,3 +353,26 @@ def test_pair_table_layout_matches_the_kernels_struct():
     plain = [(dx, dy) for dx, dy, _, _ in
              K.R._pair_constants(TP.AOParams(exhaustive=True))]
     assert plain == list(zip(table["dx"].tolist(), table["dy"].tolist()))
+
+
+def test_chip_smoke_chain_work_counts():
+    """The byte count under the upsample step's roofline shares
+    (chip_smoke.chain_work: each input read once, each output written
+    once): one ULTRA 1080p chain frame -- steps 4->3 (no pre-min), 3->2,
+    2->1 and 1->0 (pre-min), the last cropped to 1080 x 1920 -- moves
+    7,606,080 floats; the 4K step 1->0 with pre-min 22,917,120."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    hp, wp = TP.padded_shape(1080, 1920)
+    lv = [(hp >> l, wp >> l) for l in range(5)]
+    floats = sum(cs.chain_work(lv[l], *((1080, 1920) if l == 1 else lv[l - 1]),
+                               lo_inputs=2 if l == 4 else 3)[1]
+                 for l in (4, 3, 2, 1)) // 4
+    assert floats == 7_606_080
+    hp4, wp4 = TP.padded_shape(2160, 3840)
+    assert cs.chain_work((4, hp4 // 2, wp4 // 2), 2160, 3840,
+                         lo_inputs=3)[1] // 4 == 4 * 22_917_120
+    assert cs.chain_work((hp4 // 2, wp4 // 2), 2160, 3840,
+                         lo_inputs=3)[1] // 4 == 22_917_120

@@ -1,7 +1,8 @@
-// One blur+upsample chain step on a shared-memory tile: the per-position
-// stages that the upsample kernel (upsample.cu), the fused step (fused.cu)
-// and the zero-copy fused step (fused_zc.cu) share.  The math is the
-// composition rule of tpuao/ops/upsample.py::blur_upsample_step:
+// One blur+upsample chain step on a shared-memory tile: the block shape,
+// the per-position stages and the staging of the hi rows that the upsample
+// kernel (upsample.cu), the fused step (fused.cu) and the zero-copy fused
+// step (fused_zc.cu) share.  The math is the composition rule of
+// tpuao/ops/upsample.py::blur_upsample_step:
 //   1. lo = min(lo_ao, lo_ao2) [pre-min], edge-extended by one texel at
 //      the bottom and right to (lh+1, lw+1);
 //   2. 3x3 noise filter [1,2,1]^2 / (1 + nfs*dd^2) on that extended domain
@@ -21,18 +22,33 @@
 // positions over its threads as it likes: every kernel that calls them on
 // the same tile gives the same bits.
 //
-// The upsample kernel is one thread per extended-tile texel on a 32 x 16
-// block, as is fused_zc.cu; fused.cu has a larger tile of its own.
+// All three kernels run a block of 64 x 8 threads on an extended tile of
+// 8*NT x 64 slots, (8*NT - 3) x 61 lo texels written: a thread owns one
+// tile column and NT slots 8 rows apart, every thread filters, and the 2x
+// goes one hi row per warp pass (chain_upsample_row), two adjacent hi
+// texels a thread, so a warp's stores cover one contiguous run of a row.
 //
-// Cost: a lo texel's filter and 2x take ~153 FP32 operations counted as
-// one each, but ~32 of them are IEEE divisions (10 in the filter, 22 in
-// the 2x), each several instructions; they are the plain version's, so
-// they stay.  At the render kernel's rate the fused 4K step's render
-// (1.20x the level's texels) would take ~0.07 of its 0.159 ms; the rest
-// is these stages, the staging and the barriers between them (PERF.md).
+// Divisions.  The plain version's weights are g / x with g a power of two
+// (the filter's [1,2,1]^2 taps, the 2x's wr*wc); the stages form them as
+// g * RN(1/x), the same float whenever 1/x is a normal float (PyTorch's
+// own float / tensor is that form too).  The filter's centre weight is
+// g / (1 + nfs*0) = 4 exactly and is not divided for.  Every reciprocal
+// and division is rounded to nearest without a branch (rcp_rn, div_rn
+// below): the IEEE operations are a fast path behind a range check and a
+// branch to a slow path, and with 31 of them a lo texel (8 + 1 in the
+// filter, 9 + 9 + 4 in the 2x) those branches kept the compiler from
+// interleaving the independent weights: the branch-free forms made the
+// upsample step about twice and the fused step about 1.3 times as fast
+// (PERF.md).  They give the IEEE bits wherever no reciprocal or
+// quotient is subnormal or overflows
+// (csrc/selftest.cu checks every float's reciprocal and 2^30 quotients
+// on the card); a weight below 2^-126 may flush to zero.
 #pragma once
 
+#include <cstdint>
+
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace tpuao {
 
@@ -59,13 +75,132 @@ struct ChainTileT {
   float f[OH + 1][OW + 1];
 };
 
-// The upsample and zero-copy kernels: a block of kTileW x kTileH threads,
-// one per extended-tile texel, writing kOutH x kOutW lo texels.
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-constexpr int kOutW = kTileW - 3;
-constexpr int kOutH = kTileH - 3;
-using ChainTile = ChainTileT<kOutH, kOutW>;
+constexpr int kChainCols = 64;  // extended-tile columns = blockDim.x
+constexpr int kChainRows = 8;   // blockDim.y
+constexpr int kChainThreads = kChainCols * kChainRows;
+constexpr int kChainOutW = kChainCols - 3;
+constexpr int kChainHiW = 2 * kChainOutW;  // staged hi texels of a row
+// staged depth columns of the fused steps' render: a 4-aligned cover of
+// padded columns j0-17 .. j0+79
+constexpr int kChainPitch = kChainCols + 36;
+constexpr int kSMs = 132;  // H100 SXM
+
+template <int NT>
+struct ChainShape {
+  static constexpr int kExtH = kChainRows * NT;
+  static constexpr int kOutH = kExtH - 3;
+  using Tile = ChainTileT<kOutH, kChainOutW>;
+  // staged hi texels of the block's 2*kOutH hi rows
+  static constexpr int kHiFloats = 2 * kOutH * kChainHiW;
+  static_assert(sizeof(Tile) % 16 == 0, "tiles keep 16-byte alignment");
+};
+
+// Blocks of a tiled launch over the (h0, w0) output at NT texels a thread.
+template <int NT>
+long chain_blocks(const ChainArgs& a, int batch) {
+  constexpr int kOutH = ChainShape<NT>::kOutH;
+  return (long)(((a.w0 + 1) / 2 + kChainOutW - 1) / kChainOutW) *
+         (((a.h0 + 1) / 2 + kOutH - 1) / kOutH) * batch;
+}
+
+// Texels a thread for a tiled launch (more of them, less of the tile's
+// apron): 3 where that still makes two full waves of three blocks an SM,
+// else 2 where every SM still gets a block, else 1.  (At one wave and a
+// bit, the 1080p fused step 1->0, 3 measured slower than 2: the last wave
+// runs almost empty.)
+inline int chain_nt(const ChainArgs& a, int batch) {
+  if (chain_blocks<3>(a, batch) >= 2 * 3 * kSMs) return 3;
+  if (chain_blocks<2>(a, batch) >= kSMs) return 2;
+  return 1;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on `device`: above
+// 48 KB a kernel opts in, once per device; `done` is the caller's record
+// for this kernel.  The device must be current.
+template <class Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t bytes, int device,
+                        bool (&done)[64]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!done[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    done[device] = true;
+  }
+  return cudaSuccess;
+}
+
+// Whether 8-byte copies of texel pairs may be used: hi rows start on
+// even texels (2lw texels a row, 4*lh*lw a plane), so only the base
+// pointer's alignment decides.
+inline bool vec2_ok(const void* p) {
+  return p == nullptr || reinterpret_cast<std::uintptr_t>(p) % 8 == 0;
+}
+
+// Issue the copies of hi rows 2*i0 .. 2*i0 + rows - 1 of one frame's
+// (2lh, 2lw) field `src`, the pairs of lo columns j0 .. j0+60 inside the
+// crop, into `dst` (pitch kChainHiW): thread (tx, ty) copies pair tx of
+// rows ty, ty+8, ...  The caller commits and waits.
+__device__ __forceinline__ void stage_hi_rows(float* dst, const float* src,
+                                              const ChainArgs& a, int i0,
+                                              int j0, int rows, bool vec2,
+                                              int tx, int ty) {
+  if (tx >= kChainOutW || 2 * (j0 + tx) >= a.w0) return;
+  for (int r = ty; r < rows; r += kChainRows) {
+    const float* s = src + (size_t)(2 * i0 + r) * (2 * a.lw) + 2 * (j0 + tx);
+    float* d = dst + r * kChainHiW + 2 * tx;
+    if (vec2) {
+      cp_async8(d, s);
+    } else {
+      cp_async4(d, s);
+      cp_async4(d + 1, s + 1);
+    }
+  }
+}
+
+// 1/x rounded to nearest, without a branch: the approximate reciprocal
+// (rcp.approx.ftz: within an ulp) and one Newton step on FMAs.  Equal to
+// the IEEE reciprocal for every x with a normal reciprocal
+// (2^-126 <= |x| < 2^126; checked for each such float on the card).
+__device__ __forceinline__ float rcp_rn(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return __fmaf_rn(y, __fmaf_rn(-x, y, 1.0f), y);
+}
+
+// a/b rounded to nearest, without a branch: q = a * RN(1/b) is within an
+// ulp of a/b, its remainder a - b*q is exact on an FMA, and one
+// correction with RN(1/b) rounds correctly (Markstein's theorem), for
+// operands whose quotient, reciprocal and remainder neither overflow nor
+// underflow.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const float y = rcp_rn(b);
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+}
+
+// The frame-edge slots of thread (tx, ty)'s column -- slot (ty + 8k, tx)
+// holds lo texel (i0 - 1 + ty + 8k, j0 - 1 + tx) -- take the value of the
+// slot they clamp to, which holds a texel inside the level: the edge
+// extension of a tile rendered only inside the level.  The caller
+// synchronises around it.
+template <int NT, class Tile>
+__device__ __forceinline__ void chain_fill_edges(Tile& t, const ChainArgs& a,
+                                                 int i0, int j0, int tx,
+                                                 int ty) {
+  const int cc = j0 - 1 + tx;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int sr = ty + k * kChainRows, rr = i0 - 1 + sr;
+    if (cc >= 0 && cc < a.lw && rr >= 0 && rr < a.lh) continue;
+    const int sr2 = min(max(rr, 0), a.lh - 1) - (i0 - 1);
+    const int sc2 = min(max(cc, 0), a.lw - 1) - (j0 - 1);
+    t.a[sr][tx] = t.a[sr2][sc2];
+    t.d[sr][tx] = t.d[sr2][sc2];
+  }
+}
 
 // Stage 2: noise filter at extended position (i0+y, j0+x): the centre is
 // tile slot (y+1, x+1), which holds lo texel min(i0+y, lh-1).  Reads t.a
@@ -81,13 +216,16 @@ __device__ __forceinline__ void chain_filter(Tile& t, float nfs, int x,
 #pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
       const float g = (dy == 0 ? 2.0f : 1.0f) * (dx == 0 ? 2.0f : 1.0f);
-      const float dd = t.d[y + 1 + dy][x + 1 + dx] - dc;
-      const float wt = g / (1.0f + nfs * dd * dd);
+      float wt = g;  // the centre: g / (1 + nfs*0*0) = 4 exactly
+      if (dy != 0 || dx != 0) {
+        const float dd = t.d[y + 1 + dy][x + 1 + dx] - dc;
+        wt = g * rcp_rn(1.0f + nfs * dd * dd);  // == g / (1 + nfs*dd^2)
+      }
       acc += wt * t.a[y + 1 + dy][x + 1 + dx];
       wacc += wt;
     }
   }
-  t.f[y][x] = acc / wacc;
+  t.f[y][x] = div_rn(acc, wacc);
 }
 
 // Stage 3 at one hi texel: the value of (2i+P, 2j+Q) of lo texel
@@ -105,68 +243,52 @@ __device__ __forceinline__ float chain_upsample_at(const Tile& t,
       const float wc = Q == 0 ? 1.0f : 0.5f;
       // depth of lo tap min(i+dr, lh-1) sits in tile slot y+dr+1
       const float dd = t.d[y + dr + 1][x + dc + 1] - hd;
-      const float wt = (wr * wc) / (dd * dd / a.k_blur + a.k_up);
+      // == (wr*wc) / (dd^2/k_blur + k_up)
+      const float wt =
+          (wr * wc) * rcp_rn(div_rn(dd * dd, a.k_blur) + a.k_up);
       acc += wt * t.f[y + dr][x + dc];
       wacc += wt;
     }
   }
-  return acc / fmaxf(wacc, 1e-30f);
+  return div_rn(acc, fmaxf(wacc, 1e-30f));
 }
 
-// Stage 3 at hi texel (hr, hc) = (2i+P, 2j+Q), inside the (h0, w0) crop,
-// its hi depth read from memory; writes it, min'd with the blend field if
-// there is one, to a.out.
-template <int P, int Q, class Tile>
-__device__ __forceinline__ void chain_upsample_hi(const Tile& t,
-                                                  const ChainArgs& a, int x,
-                                                  int y, int hr, int hc) {
-  const size_t hi_idx =
-      (size_t)a.lh * a.lw * blockIdx.z * 4 + (size_t)hr * (2 * a.lw) + hc;
-  float v = chain_upsample_at<P, Q>(t, a, x, y, a.hi_d[hi_idx]);
-  if (a.hi_blend != nullptr) v = fminf(v, a.hi_blend[hi_idx]);
-  a.out[(size_t)a.h0 * a.w0 * blockIdx.z + (size_t)hr * a.w0 + hc] = v;
-}
-
-// Stage 3: bilateral 2x of lo texel (i0+y, j0+x) into its four hi texels,
-// for lo rows below i_end only; writes only the (h0, w0) crop.
-template <class Tile>
-__device__ __forceinline__ void chain_upsample(const Tile& t,
-                                               const ChainArgs& a, int i0,
-                                               int j0, int i_end, int x,
-                                               int y) {
-  if (y >= Tile::kOH || x >= Tile::kOW) return;
-  const int i = i0 + y, j = j0 + x;
-  if (i >= i_end || 2 * i >= a.h0 || 2 * j >= a.w0) return;
-  const bool row1 = 2 * i + 1 < a.h0, col1 = 2 * j + 1 < a.w0;
-  chain_upsample_hi<0, 0>(t, a, x, y, 2 * i, 2 * j);
-  if (col1) chain_upsample_hi<0, 1>(t, a, x, y, 2 * i, 2 * j + 1);
-  if (row1) chain_upsample_hi<1, 0>(t, a, x, y, 2 * i + 1, 2 * j);
-  if (row1 && col1)
-    chain_upsample_hi<1, 1>(t, a, x, y, 2 * i + 1, 2 * j + 1);
-}
-
-// Stage 3 along a hi row, for a kernel without a blend field that has
-// staged the hi depths of its tile: hi row 2*i0 + yy (parity yy & 1, the
-// same for every thread of a warp that shares yy), texels 2j and 2j+1 of
-// lo column j0+x, for lo rows below i_end only; hd points at the staged
-// depth of (2*i0 + yy, 2*j0), the row's first.  Adjacent threads write
-// adjacent pairs of hi texels.
-template <class Tile>
-__device__ __forceinline__ void chain_upsample_row(const Tile& t,
-                                                   const ChainArgs& a, int i0,
-                                                   int j0, int i_end, int x,
-                                                   int yy, const float* hd) {
+// Stage 3 along a hi row: hi row 2*i0 + yy (parity yy & 1, the same for
+// every thread of a warp that shares yy), texels 2j and 2j+1 of lo column
+// j0+x, for lo rows below i_end only, inside the (h0, w0) crop, into the
+// frame's (h0, w0) output `out`.  hd points at the staged depth of
+// (2*i0 + yy, 2*j0), the row's first; with kBlend, hb at the staged blend
+// field there, which the result is min'd with.  Adjacent threads write
+// adjacent pairs of hi texels, as one 8-byte store where the rows allow.
+template <bool kBlend, class Tile>
+__device__ __forceinline__ void chain_upsample_row(
+    const Tile& t, const ChainArgs& a, float* out, int i0, int j0,
+    int i_end, int x, int yy, const float* hd, const float* hb) {
   const int y = yy >> 1, i = i0 + y, j = j0 + x;
   const int hr = 2 * i0 + yy, hc = 2 * j;
   if (x >= Tile::kOW || i >= i_end || hr >= a.h0 || hc >= a.w0) return;
-  float* out = a.out + (size_t)a.h0 * a.w0 * blockIdx.z + (size_t)hr * a.w0;
+  out += (size_t)hr * a.w0 + hc;
   const bool col1 = hc + 1 < a.w0;
+  float v0, v1 = 0.0f;
   if ((yy & 1) == 0) {
-    out[hc] = chain_upsample_at<0, 0>(t, a, x, y, hd[2 * x]);
-    if (col1) out[hc + 1] = chain_upsample_at<0, 1>(t, a, x, y, hd[2 * x + 1]);
+    v0 = chain_upsample_at<0, 0>(t, a, x, y, hd[2 * x]);
+    if (col1) v1 = chain_upsample_at<0, 1>(t, a, x, y, hd[2 * x + 1]);
   } else {
-    out[hc] = chain_upsample_at<1, 0>(t, a, x, y, hd[2 * x]);
-    if (col1) out[hc + 1] = chain_upsample_at<1, 1>(t, a, x, y, hd[2 * x + 1]);
+    v0 = chain_upsample_at<1, 0>(t, a, x, y, hd[2 * x]);
+    if (col1) v1 = chain_upsample_at<1, 1>(t, a, x, y, hd[2 * x + 1]);
+  }
+  if constexpr (kBlend) {
+    v0 = fminf(v0, hb[2 * x]);
+    if (col1) v1 = fminf(v1, hb[2 * x + 1]);
+  }
+  // pairs are 8-byte aligned when every row is: w0 even, the base aligned
+  // (a uniform test: a per-thread one on `out` measured slower)
+  if (col1 && (a.w0 & 1) == 0 &&
+      reinterpret_cast<std::uintptr_t>(a.out) % 8 == 0) {
+    *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+  } else {
+    out[0] = v0;
+    if (col1) out[1] = v1;
   }
 }
 

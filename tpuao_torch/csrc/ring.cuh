@@ -1,6 +1,6 @@
 // A ring of depth rows in shared memory, filled by cp.async straight from
 // the unpadded level, for the kernels that walk a column strip downwards
-// (render_dma.cu, fused_zc.cu).
+// (render_dma.cu; fused_zc.cu keeps a doubled ring of its own).
 //
 // The ring holds kRows (a power of two) rows of kCols texels.  Padded row
 // p (-16 <= p < h + 16; rows outside are clamped to that range) sits in

@@ -1,8 +1,8 @@
 // Staging the parity-4 padded level into shared memory with cp.async,
 // straight from the unpadded (h, w) level in device memory: no padded copy
 // is built, the apron is formed when an address is formed.  Used by the
-// tiled kernels (render.cu, fused.cu) and by the ring of the kernels that
-// walk a strip (ring.cuh).
+// tiled kernels (render.cu, fused.cu, upsample.cu via chain_step.cuh) and
+// by the rings of the kernels that walk a strip (ring.cuh, fused_zc.cu).
 #pragma once
 
 #include <cstdint>
@@ -14,6 +14,13 @@ namespace tpuao {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                "l"(src)
                : "memory");
 }

@@ -26,10 +26,16 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
-           "render_dma.cu", "fused_zc.cu")
+           "render_dma.cu", "fused_zc.cu", "selftest.cu")
 HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh", "ring.cuh")
+# Each library binds its own symbols: two builds loaded in one process (an
+# older tree's kernels timed beside these) share the names of their
+# templates, and a static inside a template function (a launcher's record
+# of its shared-memory opt-in) is otherwise one GNU-unique object for the
+# whole process, so one library would skip the other's opt-in.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC,-fno-gnu-unique", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-Xlinker", "-Bsymbolic")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -52,6 +58,7 @@ SIGNATURES = {
     "tpuao_fused_render_upsample_step_zc": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
         _F, _F, _F, _F, _F, _I, _P),
+    "tpuao_check_division": (_P, _I, _P),
 }
 
 
@@ -85,7 +92,7 @@ def _source_hash(nvcc: str, csrc: pathlib.Path) -> str:
         for name in names:
             h.update(name.encode())
             h.update((csrc / name).read_bytes())
-    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+    h.update(" ".join((nvcc,) + NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -118,7 +125,7 @@ def build(csrc: pathlib.Path = CSRC) -> pathlib.Path:
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         outs = [p.communicate()[0] for p in procs]
-        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+        link = [nvcc, *NVCC_FLAGS[:2], *LINK_FLAGS, "-o",
                 os.path.join(tmp, "lib.so"), *objs]
         log = "".join(" ".join(c) + "\n" + out
                       for c, out in zip(cmds, outs))
@@ -137,9 +144,13 @@ def build(csrc: pathlib.Path = CSRC) -> pathlib.Path:
 
 @functools.lru_cache(maxsize=None)
 def load(csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's types."""
+    """Build if needed, load, and declare every entry point's types (an
+    older tree's library may lack the newer entry points)."""
     lib = ctypes.CDLL(str(build(csrc)))
+    own = pathlib.Path(csrc).resolve() == CSRC
     for name, argtypes in SIGNATURES.items():
+        if not own and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
