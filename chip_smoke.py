@@ -7,8 +7,8 @@ Phases, one or more lines each:
 
 1. build   -- compile ``tpuao_torch/csrc`` with nvcc (sm_90a) and print the
               build time and each kernel's registers, shared memory and
-              spills (a spill in the tiled render, upsample, fused or
-              zero-copy kernel fails);
+              spills (a spill in the tiled render, upsample, fused,
+              zero-copy or DMA kernel fails);
 2. card    -- the card's name and power limit, from nvidia-smi;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the 1080p main path's shapes (max_abs_err <= 1e-5);
@@ -33,14 +33,19 @@ Phases, one or more lines each:
               vectors and unbounded motion, against impl="jnp", with the
               launch counts of every frame asserted;
 9. times   -- ms per frame of the ULTRA, 4K-normals and temporal paths,
-              and the new kernels beside their plain versions;
+              and the new kernels beside their plain versions; the
+              windowed resolve's library yardstick (grid_sample) on the
+              same inputs;
 10. variants -- the two kernels no impl reaches, through their entry
               points: render_ao_level_dma at level 1 of 1080p, 4K and 8K,
               fused_render_upsample_step_zc at the 1080p steps 2->1 and
               1->0 and the 4K and 8K steps 1->0, each equal to its sibling
               kernel bit for bit (the render and fused kernels, which are
               held against their plain versions there too), against its
-              plain version, row_tile invariant, timed beside both;
+              plain version (the DMA render bit for bit), row_tile
+              invariant, timed beside both; the DMA render's device time
+              in turns with the render kernel's, their ratio, its bound
+              share and its grid;
 11. serving -- tpuao_torch.serving on the card (batch_size=4, warmed for
               1080p normals/temporal/temporal_l1) answering direct,
               batched, ULTRA, png, dolly-session (resolve_level 0 and 1),
@@ -49,11 +54,13 @@ Phases, one or more lines each:
               the launch counts of the run, /stats latency and one
               request's decode/render/encode split;
 12. parent -- the kernels at the 1080p, 4K and 8K shapes: the render
-              (depth-only, normals), the DMA render, the upsample step (the
-              ULTRA chain of four steps at four 1080p frames, the 4K step
-              1->0 with pre-min, HIGH's 4->3 at one frame), the fused and
-              zero-copy steps side by side (and their ratio), the windowed
-              resolve; device time per call from CUDA-graph replay, beside
+              (depth-only, normals) and the DMA render side by side (and
+              their ratio), the upsample step (the ULTRA chain of four
+              steps at four 1080p frames, the 4K step 1->0 with pre-min,
+              HIGH's 4->3 at one frame), the fused and zero-copy steps side
+              by side (and their ratio), the windowed resolve at 1080p,
+              half res and 8K beside its library yardstick (grid_sample);
+              device time per call from CUDA-graph replay, beside
               the computed bound and the roofline share, and the HIGH and
               ULTRA paths at four 1080p frames a call (device time by
               torch.profiler), each beside the same kernels built from an
@@ -67,7 +74,8 @@ Phases, one or more lines each:
 Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
 time beside it as ``event_ms``, its plain version's event time, computed
-bound and library call: none), the nvidia-smi line, and last
+bound and library call: grid_sample's device time for the windowed
+resolve, none for the rest), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
 nor the JAX package.
@@ -108,9 +116,15 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 CHAIN_OPS = 153
 WINDOWED_OPS = 30
-NO_LIBRARY = ("none: no single PyTorch call computes a per-texel 34-pair "
-              "estimator, a depth-aware chain step or a windowed tent "
-              "resample")
+LIBRARY = ("windowed: torch.nn.functional.grid_sample(bilinear, border, "
+           "align_corners=True) on the stacked history, timed as a "
+           "yardstick and called nowhere in the port; the rest: none, no "
+           "single PyTorch call computes a per-texel 34-pair estimator or a "
+           "depth-aware chain step")
+# grid_sample against the windowed kernel: it takes (ip, jp) normalised to
+# [-1, 1] in float32 and back, which moves a coordinate by up to ~5e-4
+# texels at 8K; a texel's value moves by that times its neighbour's step
+TOL_LIBRARY = 2e-3
 
 
 def render_ops(npairs: int, tangent: bool = False) -> int:
@@ -145,6 +159,36 @@ def chain_work(shape, h0, w0, npairs=0, lo_inputs=2, blend=False):
     nbytes = 4 * (lo * lo_inputs + 4 * lo * (2 if blend else 1) +
                   b * h0 * w0)
     return ops, nbytes
+
+
+def grid_sample_resolve(prev_ao, prev_d, ip, jp):
+    """The windowed resolve's library yardstick: one
+    ``F.grid_sample(mode="bilinear", padding_mode="border",
+    align_corners=True)`` call on the stacked (prev_ao, prev_d) history at
+    (ip, jp) normalised to [-1, 1].  Wherever |ip - i| <= r and
+    |jp - j| <= r it computes what the kernel does (the border padding is
+    the edge-padded tent sum's clamp).  Returns the call; its inputs are
+    formed outside it.  Timed here only: the port never calls it."""
+    import torch
+
+    h, w = prev_ao.shape
+    src = torch.stack([prev_ao, prev_d])[None]
+    grid = torch.stack([jp * (2.0 / (w - 1)) - 1.0,
+                        ip * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
+    return lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="border",
+        align_corners=True)
+
+
+def library_error(call, kernel_out) -> float:
+    """Max |library - kernel| over both history fields; fails above
+    TOL_LIBRARY (a wrong normalisation would be off by far more)."""
+    got = call()[0]
+    err = max(float((g - k).abs().max()) for g, k in zip(got, kernel_out))
+    if not err <= TOL_LIBRARY:
+        raise RuntimeError(f"grid_sample yardstick off the windowed kernel "
+                           f"by {err}")
+    return err
 
 
 def _card() -> str:
@@ -562,6 +606,13 @@ def phase_times_new(card, K, cam, wp, pyr, spyr, z4, n4, d4k, n4k, dz, dn,
         print(f"  {name}: kernel {kms[name][0]:.4f} ms (events), "
               f"{kms[name][2]:.4f} ms (device, graph replay), plain "
               f"{kms[name][1]:.4f} ms (events) [{card}]", flush=True)
+    # the windowed kernel's library yardstick on the same inputs
+    lib = grid_sample_resolve(dz[0], dz[1], ip, jp)
+    err = library_error(lib, K.windowed_resolve(dz[0], dz[1], ip, jp, 4))
+    kms["windowed library"] = cuda_graph_ms(lib)
+    print(f"  windowed library call (grid_sample): "
+          f"{kms['windowed library']:.4f} ms (device, graph replay), "
+          f"max |library - kernel| {err:.3e} [{card}]", flush=True)
     return kms
 
 
@@ -657,7 +708,7 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
     print(f"  entry-point run: launches {run}")
     expect_counts(K, "variants", counts(render_ao_level_dma=3,
                                         fused_render_upsample_step_zc=4))
-    ms = {}
+    ms, graph = {}, {}
     for k, (d, fw) in dma_in.items():
         label = f"dma {k} level 1 {tuple(d.shape)}"
         rk = K.render_ao_level(d, 1, fw, cam, par)
@@ -667,18 +718,32 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
                   rk, K.render_ao_level_plain(d, 1, fw, cam, par),
                   tol=TOL_EXACT)
         chk.close("dma", f"{label} vs plain", dma_out[k],
-                  K.render_ao_level_plain(d, 1, fw, cam, par))
-        for rt in (16, 37, 4096):
+                  K.render_ao_level_plain(d, 1, fw, cam, par), tol=TOL_EXACT)
+        for rt in (1, 16, 37, 4096):
             chk.close("", f"{label} row_tile={rt} vs row_tile=128",
                       K.render_ao_level_dma(d, 1, fw, cam, par, row_tile=rt),
                       dma_out[k], tol=0.0, quiet=True)
+        fns = {"dma": lambda: K.render_ao_level_dma(d, 1, fw, cam, par),
+               "render": lambda: K.render_ao_level(d, 1, fw, cam, par)}
         ms[k] = tuple(cuda_time_ms(f) for f in (
-            lambda: K.render_ao_level_dma(d, 1, fw, cam, par),
-            lambda: K.render_ao_level(d, 1, fw, cam, par),
+            fns["dma"], fns["render"],
             lambda: K.render_ao_level_plain(d, 1, fw, cam, par)))
-        print(f"  {label}: dma {ms[k][0]:.4f} ms, render kernel "
-              f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
-              flush=True)
+        g = {}
+        for which in ("render", "dma", "dma", "render"):  # in turns
+            g.setdefault(which, []).append(cuda_graph_ms(fns[which]))
+        graph[k] = sum(g["dma"]) / 2
+        b_ms, b_by = bound(*render_work(d.shape))
+        h, w = d.shape
+        seg = K.dma_rows(128, 1, h, w)
+        print(f"  {label}: dma {g['dma'][0]:.4f} / {g['dma'][1]:.4f} ms, "
+              f"render kernel {g['render'][0]:.4f} / {g['render'][1]:.4f} "
+              f"ms (device, graph replay), dma / render "
+              f"{sum(g['dma']) / sum(g['render']):.3f}x, bound {b_ms:.4f} "
+              f"ms ({b_by}), roofline share {b_ms / graph[k]:.1%}; "
+              f"{seg}-row segments, {K.dma_nt(seg)} texels a thread, "
+              f"{-(-w // 64) * -(-h // seg)} blocks; events: dma "
+              f"{ms[k][0]:.4f}, render {ms[k][1]:.4f}, plain {ms[k][2]:.4f} "
+              f"ms [{card}]", flush=True)
     for k, (ds, c1, hi, l, fw, crop) in zc_in.items():
         label = f"zc {k} {tuple(ds.shape)} crop={crop}"
         args = (ds, c1, hi, l, fw, cam, par)
@@ -702,19 +767,16 @@ def phase_variants(chk, dev, K, P, F, cam, card, pyr1080, c_in1080):
         print(f"  {label}: zc {ms[k][0]:.4f} ms, fused kernel "
               f"{ms[k][1]:.4f} ms, plain {ms[k][2]:.4f} ms [{card}]",
               flush=True)
-    print("  row_tile invariance: 3 settings each, exact")
-    d, fw = dma_in["1080p"]
+    print("  row_tile invariance: dma 4 settings, zc 3, exact")
     ds, c1, hi, l, fw1, crop = zc_in["1080p 1->0"]
-    graph = {"dma": cuda_graph_ms(
-                 lambda: K.render_ao_level_dma(d, 1, fw, cam, par)),
-             "zc": cuda_graph_ms(
-                 lambda: K.fused_render_upsample_step_zc(
-                     ds, c1, hi, l, fw1, cam, par, crop_hw=crop))}
-    print(f"  1080p level 1 dma {graph['dma']:.4f} ms, 1080p 1->0 zc "
-          f"{graph['zc']:.4f} ms (device, graph replay) [{card}]")
+    graph["zc"] = cuda_graph_ms(
+        lambda: K.fused_render_upsample_step_zc(ds, c1, hi, l, fw1, cam, par,
+                                                crop_hw=crop))
+    print(f"  1080p 1->0 zc {graph['zc']:.4f} ms (device, graph replay) "
+          f"[{card}]")
     del pyr4k, pyr8k, c, c8, dma_in, zc_in, dma_out, zc_out, d, ds, c1, hi
     torch.cuda.empty_cache()
-    return run, {"dma": (ms["1080p"][0], ms["1080p"][2], graph["dma"]),
+    return run, {"dma": (ms["1080p"][0], ms["1080p"][2], graph["1080p"]),
                  "zc": (ms["1080p 1->0"][0], ms["1080p 1->0"][2],
                         graph["zc"])}
 
@@ -882,15 +944,17 @@ def kernel_library(lib):
 
 def phase_parent(dev, K, P, R, F, cam, card, parent):
     """12. The kernels at the 1080p, 4K and 8K shapes -- the render in its
-    depth-only and slope modes, the DMA render, the upsample step (the
-    ULTRA chain of four steps at four 1080p frames, the 4K step 1->0 with
-    pre-min, HIGH's 4->3 at one frame), the fused and zero-copy steps side
-    by side, the windowed resolve -- and the HIGH and ULTRA paths end to
-    end at four 1080p frames a call: device ms per call from CUDA-graph
-    replay, with each kernel's computed bound and roofline share, beside
-    the kernels of ``parent`` (a ``tpuao_torch/csrc`` directory of an older
-    tree, or None), timed in turns: parent, new, new, parent; each kernel's
-    output is held against the parent's (max |new - parent|)."""
+    depth-only and slope modes, the DMA render beside it, the upsample
+    step (the ULTRA chain of four steps at four 1080p frames, the 4K step
+    1->0 with pre-min, HIGH's 4->3 at one frame), the fused and zero-copy
+    steps side by side, the windowed resolve beside its library yardstick
+    (grid_sample, never called by the port) -- and the HIGH and ULTRA
+    paths end to end at four 1080p frames a call: device ms per call from
+    CUDA-graph replay, with each kernel's computed bound and roofline
+    share, beside the kernels of ``parent`` (a ``tpuao_torch/csrc``
+    directory of an older tree, or None), timed in turns: parent, new,
+    new, parent; each kernel's output is held against the parent's
+    (max |new - parent|)."""
     import numpy as np
     import torch
 
@@ -996,22 +1060,26 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
                 chain_work(z[4].shape, *z[3].shape))
 
     rng = np.random.default_rng(SEED)
+    wins = {}  # the windowed cases' inputs, for the library yardstick
 
-    def windowed(h, w, r):
+    def windowed(h, w, r, di=1.3, dj=-2.7):
         ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
         jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
         f = [torch.as_tensor(rng.uniform(lo, hi, (h, w)), dtype=torch.float32,
                              device=dev) for lo, hi in ((0, 1), (0.05, 1))]
-        ip = (ii + 1.3).expand(h, w).contiguous()
-        jp = (jj - 2.7).expand(h, w).contiguous()
+        ip = (ii + di).expand(h, w).contiguous()
+        jp = (jj + dj).expand(h, w).contiguous()
+        wins[(h, w, r)] = (f[0], f[1], ip, jp)
         return (lambda: K.windowed_resolve(f[0], f[1], ip, jp, r),
                 (h * w * WINDOWED_OPS, 4 * 6 * h * w))
 
     cases = {
         ("render", "1080p level 4"): render("1080p", 4),
+        ("render", "1080p level 1"): render("1080p", 1),
+        ("dma", "1080p level 1"): dma("1080p"),
         ("render", "4K level 1"): render("4K", 1),
-        ("render", "8K level 1"): render("8K", 1),
         ("dma", "4K level 1"): dma("4K"),
+        ("render", "8K level 1"): render("8K", 1),
         ("dma", "8K level 1"): dma("8K"),
         ("render_normals", "1080p levels 1-4 x4"): normals("1080p x4"),
         ("render_normals", "4K levels 1-4"): normals("4K"),
@@ -1027,6 +1095,7 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
         ("fused", "8K step 1->0"): fused("8K", (1,)),
         ("zc", "8K step 1->0"): zc("8K"),
         ("windowed", "1080p r=4"): windowed(1080, 1920, 4),
+        ("windowed", "half-res r=2"): windowed(540, 960, 2, 0.6, -1.3),
         ("windowed", "8K r=4"): windowed(4320, 7680, 4),
     }
     # end to end: the main path and the ULTRA path, four frames a call
@@ -1077,10 +1146,28 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
         line += f" [{card}]"
         print(line, flush=True)
         out[(kern, shape)] = ms
-    for k in full:  # the zero-copy step beside the tiled one, same call
+    for k in full:  # the variants beside their siblings, same call
         ratio = (sum(out[("zc", f"{k} step 1->0")]["new"]) /
                  sum(out[("fused", f"{k} step 1->0")]["new"]))
         print(f"  zc / fused, {k} step 1->0: {ratio:.3f}x [{card}]")
+        ratio = (sum(out[("dma", f"{k} level 1")]["new"]) /
+                 sum(out[("render", f"{k} level 1")]["new"]))
+        print(f"  dma / render, {k} level 1: {ratio:.3f}x [{card}]")
+    # the windowed resolve's library yardstick (never called by the port)
+    for (kern, shape), (h, w, r) in (
+            (("windowed", "1080p r=4"), (1080, 1920, 4)),
+            (("windowed", "half-res r=2"), (540, 960, 2)),
+            (("windowed", "8K r=4"), (4320, 7680, 4))):
+        f0, f1, ip, jp = wins[(h, w, r)]
+        lib = grid_sample_resolve(f0, f1, ip, jp)
+        err = library_error(lib, K.windowed_resolve(f0, f1, ip, jp, r))
+        lib_ms = cuda_graph_ms(lib)
+        new = sum(out[(kern, shape)]["new"]) / 2
+        print(f"  windowed {shape}: library call (grid_sample) {lib_ms:.4f} "
+              f"ms against the kernel's {new:.4f} ms, kernel / library "
+              f"{new / lib_ms:.3f}x, max |library - kernel| {err:.3e} "
+              f"[{card}]", flush=True)
+    del wins
     # where the time goes: device time by kernel, and the idle share
     for label, fn in (("HIGH auto 1080p, 1 frame a call",
                        lambda: render_frame(frames[:1], cam_hw, par)),
@@ -1186,7 +1273,8 @@ def main(argv=None) -> int:
         print(f"  {k['name']}: {k['regs']} registers, {k['smem']} B shared, "
               f"{k['spill']} B spilled")
         tiled = k["name"].startswith(("render_kernel", "fused_step_kernel",
-                                      "upsample_kernel", "fused_zc_kernel"))
+                                      "upsample_kernel", "fused_zc_kernel",
+                                      "render_dma_kernel"))
         if tiled and k["spill"]:
             raise RuntimeError(f"{k['name']} spills {k['spill']} bytes")
     # the chain stages' branch-free reciprocal and division against the
@@ -1447,8 +1535,9 @@ def main(argv=None) -> int:
                         "max_abs_err": chk.worst[key], "ms": ms[key][2],
                         "event_ms": ms[key][0], "plain_ms": ms[key][1],
                         "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
-    print(f"library calls: {NO_LIBRARY}")
+                        "bound_by": b_by,
+                        "library_ms": ms.get(f"{key} library")})
+    print(f"library calls: {LIBRARY}")
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on its path")

@@ -141,6 +141,23 @@ def test_engine_debug_grayscale_and_out_dtype():
     assert plain.dtype == torch.uint8 and tuple(plain.shape) == (64, 64)
 
 
+def test_engine_debug_levels_under_auto():
+    """The default impl's debug dict holds every level, with tpuao's
+    default engine's values."""
+    z = scene(64, 64)
+    ao, dbg = AmbientOcclusionEngine(CAM, device="cpu").render(
+        z, debug_outputs=True)
+    jao, jdbg = JPL.AmbientOcclusionEngine(JCAM).render(z,
+                                                        debug_outputs=True)
+    assert sorted(dbg["ao_levels"]) == sorted(jdbg["ao_levels"]) == [1, 2,
+                                                                      3, 4]
+    for l, lvl in dbg["ao_levels"].items():
+        np.testing.assert_allclose(lvl.numpy(),
+                                   np.asarray(jdbg["ao_levels"][l]),
+                                   atol=TOL)
+    np.testing.assert_allclose(ao.numpy(), np.asarray(jao), atol=TOL)
+
+
 def test_engine_out_dtype():
     z = scene(96, 128, seed=2)
     out = AmbientOcclusionEngine(CAM, out_dtype="uint8",

@@ -88,6 +88,57 @@ def test_render_dma_row_tile_invariant_and_batched(level):
                               row_tile=0)
 
 
+SMS = 132  # H100 SXM
+WAVE = 3 * SMS  # blocks resident at once: three an SM
+
+
+def dma_cost(h, w, seg, batch=1):
+    """(blocks, rows the busiest SM renders) of a segment of seg rows."""
+    blocks = -(-w // 64) * -(-h // seg) * batch
+    return blocks, -(-blocks // SMS) * (seg + 2)
+
+
+@pytest.mark.parametrize("h,w,seg,blocks,waves", [
+    (544, 960, 32, 255, 1),       # 1080p level 1: two blocks on most SMs
+    (1088, 1920, 64, 510, 2),     # 4K: 128-row segments were 270 blocks
+    (2176, 3840, 128, 1020, 3)])  # 8K
+def test_dma_rows_at_the_level1_shapes(h, w, seg, blocks, waves):
+    """The DMA render's segment at the level-1 shapes of 1080p, 4K and 8K
+    (the default row_tile): four texels a thread, its grid's blocks and
+    waves of 396, and no segment within row_tile leaves the busiest SM
+    fewer rows."""
+    assert K.dma_rows(128, 1, h, w) == seg and K.dma_nt(seg) == 4
+    assert dma_cost(h, w, seg)[0] == blocks
+    assert -(-blocks // WAVE) == waves
+    best = dma_cost(h, w, seg)[1]
+    for other in range(8, 129, 8):
+        assert dma_cost(h, w, other)[1] >= best
+        if other > seg:
+            assert dma_cost(h, w, other)[1] > best  # ties go to the larger
+
+
+@pytest.mark.parametrize("row_tile", [1, 7, 8, 16, 37, 128, 4096])
+def test_dma_rows_only_bounded_by_row_tile(row_tile):
+    """row_tile bounds the segment and nothing else decides it but the
+    grid; a segment's texels a thread step through it exactly."""
+    for batch, h, w in ((1, 544, 960), (1, 1088, 1920), (4, 544, 960),
+                        (3, 44, 100), (1, 4, 4), (2, 130, 130)):
+        seg = K.dma_rows(row_tile, batch, h, w)
+        assert 1 <= seg <= min(row_tile, K.DMA_MAX_ROWS)
+        if row_tile < 8:
+            assert seg == row_tile
+        else:
+            assert seg % 8 == 0 and seg < h + 8
+            assert seg % (8 * K.dma_nt(seg)) == 0
+    assert K.dma_rows(4096, 1, 1088, 1920) == K.dma_rows(128, 1, 1088, 1920)
+    # 4 x 10 x 3 = 120 blocks at the cap: one each on 120 SMs
+    assert K.dma_rows(4096, 3, 640, 640) == K.DMA_MAX_ROWS == 160
+    assert [K.dma_nt(s) for s in (1, 8, 16, 24, 32, 48, 88, 96, 128)] == \
+        [1, 1, 2, 1, 4, 2, 1, 4, 4]
+    with pytest.raises(ValueError, match="row_tile"):
+        K.dma_rows(0, 1, 64, 64)
+
+
 def zc_inputs(lh, lw, seed):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0.2, 0.8, (lh, lw)),

@@ -284,26 +284,116 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                      normals=torch.zeros(64, 96, 3))
 
 
-@pytest.mark.parametrize("h,w", [(64, 96), (44, 64), (37, 50), (130, 200)])
+DMA_SIZES = [(64, 96), (44, 64), (37, 50), (130, 200), (70, 96), (70, 100),
+             (70, 130), (70, 200), (45, 64)]
+# uneven rows; ragged last strips; an interior strip between edge strips
+# (200); widths that take 16-byte copies (multiples of 4) and ones that
+# take 4-byte copies (50, 130); levels that are one strip (64, 50)
+
+
+@pytest.mark.parametrize("h,w", DMA_SIZES)
 def test_render_dma_equals_render_kernel(dev, h, w):
-    """Bit for bit against render.cu (the same render_texel on the same
-    tap values), at several row_tile values, on uneven levels (rows not a
-    multiple of the tile, widths not a multiple of 4: 4-byte copies) and
-    batched."""
+    """Bit for bit against render.cu (the same render_tile_texel on the
+    same tap values) and plain, both pair tables, at a batch of three and
+    one frame, for every row_tile (segments of one row to one a strip)."""
     z = uniform(dev, (3, h, w), 0.05, 1.0, 20)
     z[1] = torch.as_tensor(F.spheres_on_plane(h, w, CAM, seed=4),
                            dtype=torch.float32, device=dev)
+    row_tiles = (128, 1, 7, 16, 23, 37, 4096, 10000)
     for ex in (True, False):
         par = AOParams(exhaustive=ex, strength=1.3)
         sib = K.render_ao_level(z, 1, 2 * w, CAM, par)
-        plain = K.render_ao_level_plain(z, 1, 2 * w, CAM, par)
+        close(sib, K.render_ao_level_plain(z, 1, 2 * w, CAM, par), 0.0)
         K.reset_launch_counts()
-        for rt in (128, 1, 16, 23, 10000):
-            got = K.render_ao_level_dma(z, 1, 2 * w, CAM, par, row_tile=rt)
-            close(got, sib, 0.0)
-            close(got, plain)
-        assert K.render_ao_level_dma.launches == 5
-        close(K.render_ao_level_dma(z[2], 1, 2 * w, CAM, par), sib[2], 0.0)
+        for rt in row_tiles:
+            close(K.render_ao_level_dma(z, 1, 2 * w, CAM, par, row_tile=rt),
+                  sib, 0.0)
+            close(K.render_ao_level_dma(z[2], 1, 2 * w, CAM, par,
+                                        row_tile=rt), sib[2], 0.0)
+        assert K.render_ao_level_dma.launches == 2 * len(row_tiles)
+
+
+def dma_at_segment(z, seg, par, full_width):
+    """The DMA kernel at a given segment, through its entry point (past
+    the wrapper's rule, which takes one step a segment at small sizes)."""
+    out = torch.empty_like(z)
+    table = K._level_table(par, 1, full_width, CAM)
+    K._launch("tpuao_render_ao_level_dma", z.data_ptr(), out.data_ptr(),
+              z.shape[0] if z.ndim == 3 else 1, z.shape[-2], z.shape[-1],
+              seg, table.ctypes.data, len(table),
+              float(par.rejection_falloff), float(par.strength),
+              z.device.index, K._stream(z.device))
+    return out
+
+
+@pytest.mark.parametrize("w", [100, 130])
+def test_render_dma_every_segment(dev, w):
+    """Segments of 1 to 160 rows (one to twenty steps; one, two and four
+    texels a thread) over a 150-row level, at a width that takes 16-byte
+    copies (100) and one that takes 4-byte copies (130): bit-equal to
+    render.cu; a segment past 160 rows is refused."""
+    z = uniform(dev, (2, 150, w), 0.05, 1.0, 63)
+    par = AOParams(strength=1.2)
+    want = K.render_ao_level(z, 1, 4 * w, CAM, par)
+    for seg in (1, 5, 8, 16, 24, 32, 40, 48, 64, 96, 120, 152, 160):
+        close(dma_at_segment(z, seg, par, 4 * w), want, 0.0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dma_at_segment(z, 161, par, 4 * w)
+
+
+def test_render_dma_misaligned_base_stages_by_cp_async(dev):
+    """A level whose first texel is off 16 bytes (width a multiple of 4)
+    cannot take 16-byte copies: the same kernel stages it by 4-byte
+    cp.async and still equals render.cu bit for bit."""
+    buf = uniform(dev, (64 * 96 + 1,), 0.05, 1.0, 61)
+    z = buf[1:].view(64, 96)
+    assert z.is_contiguous() and z.data_ptr() % 16 != 0
+    for rt in (1, 37, 128):
+        close(K.render_ao_level_dma(z, 1, 384, CAM, AOParams(), row_tile=rt),
+              K.render_ao_level(z, 1, 384, CAM, AOParams()), 0.0)
+
+
+def test_render_dma_4k_level_twice(dev):
+    """A 4K level-1 plane (1088 x 1920: 64-row segments of two steps at
+    four texels a thread; row_tile 16 and 7 take two texels and one),
+    run twice in a row at each setting: every launch ends (no barrier
+    waited on in vain) and equals render.cu bit for bit."""
+    z = uniform(dev, (1088, 1920), 0.05, 1.0, 62)
+    want = K.render_ao_level(z, 1, 3840, CAM, AOParams())
+    K.reset_launch_counts()
+    for rt in (128, 128, 16, 16, 7, 7):
+        got = K.render_ao_level_dma(z, 1, 3840, CAM, AOParams(), row_tile=rt)
+        torch.cuda.synchronize()
+        close(got, want, 0.0)
+    assert K.render_ao_level_dma.launches == 6
+
+
+def test_debug_outputs_render_every_level_under_auto(dev):
+    """With debug_outputs the default path also renders levels 1-3 for the
+    dict (4 render launches, the chain's launches unchanged); without it
+    one; "fused" keeps level 4 alone."""
+    cam = CameraParams()
+    z = torch.as_tensor(F.to_hardware_depth(
+        F.spheres_on_plane(128, 192, cam, seed=2), cam).astype(np.float32),
+        device=dev)
+    chain = dict(blur_upsample_step=1, fused_render_upsample_step=3)
+    K.reset_launch_counts()
+    out = render_frame(z, cam, AOParams())
+    assert K.launch_counts() == counts(render_ao_level=1, **chain)
+    K.reset_launch_counts()
+    got, dbg = render_frame(z, cam, AOParams(), debug_outputs=True)
+    assert K.launch_counts() == counts(render_ao_level=4, **chain)
+    close(got, out, 0.0)
+    _, want = render_frame(z, cam, AOParams(), debug_outputs=True,
+                           impl="jnp")
+    assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
+    for l in range(1, 5):
+        close(dbg["ao_levels"][l], want["ao_levels"][l], 0.0)
+    K.reset_launch_counts()
+    _, dbg = render_frame(z, cam, AOParams(), debug_outputs=True,
+                          impl="fused")
+    assert list(dbg["ao_levels"]) == [4]
+    assert K.launch_counts() == counts(render_ao_level=1, **chain)
 
 
 @pytest.mark.parametrize("lh,lw,crop", [(44, 64, None), (44, 64, (87, 127)),

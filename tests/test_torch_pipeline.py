@@ -173,15 +173,47 @@ def test_flat_plane_gives_one():
 
 
 def test_debug_outputs():
-    z, cam, _, _ = scene(64, 128)
+    """Under impl="auto" the debug dict holds every level, as tpuao's
+    "auto" (its jnp path) returns them, with the same values."""
+    z, cam, jcam, _ = scene(64, 128)
     out, dbg = render_frame(z, cam, AOParams(), debug_outputs=True,
                             device="cpu")
+    _, jdbg = JPL.render_frame(z, jcam, JAOParams(), debug_outputs=True,
+                               impl="auto")
     assert set(dbg) >= {"linear_z", "ao_levels", "pyramid", "combined_0"}
-    assert list(dbg["ao_levels"]) == [4]  # auto: only the coarsest renders
+    assert sorted(dbg["ao_levels"]) == sorted(jdbg["ao_levels"]) == [1, 2,
+                                                                      3, 4]
+    for l, ao in dbg["ao_levels"].items():
+        np.testing.assert_allclose(ao.numpy(), np.asarray(jdbg["ao_levels"][l]),
+                                   atol=TOL)
     np.testing.assert_array_equal(dbg["combined_0"].numpy(), out.numpy())
     _, dbg = render_frame(z, cam, AOParams(), debug_outputs=True, impl="jnp",
                           device="cpu")
     assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
+
+
+def test_debug_outputs_fused_hold_the_coarsest_level(monkeypatch):
+    """impl="fused" renders levels 1..d-1 inside the fused chain and
+    returns level d alone, as tpuao's "fused" does; and "auto" renders the
+    extra levels only when the debug dict is asked for."""
+    z, cam, jcam, _ = scene(64, 128)
+    out, dbg = render_frame(z, cam, AOParams(), debug_outputs=True,
+                            impl="fused", device="cpu")
+    jout, jdbg = JPL.render_frame(z, jcam, JAOParams(), debug_outputs=True,
+                                  impl="fused")
+    assert list(dbg["ao_levels"]) == list(jdbg["ao_levels"]) == [4]
+    np.testing.assert_allclose(dbg["ao_levels"][4].numpy(),
+                               np.asarray(jdbg["ao_levels"][4]), atol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=TOL)
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    render_frame(z, cam, AOParams(), device="cpu")
+    assert calls == [4]
+    calls.clear()
+    render_frame(z, cam, AOParams(), debug_outputs=True, device="cpu")
+    assert sorted(calls) == [1, 2, 3, 4]
 
 
 def test_debug_outputs_without_blur_hold_every_level(monkeypatch):

@@ -114,24 +114,6 @@ inline int chain_nt(const ChainArgs& a, int batch) {
   return 1;
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory on `device`: above
-// 48 KB a kernel opts in, once per device; `done` is the caller's record
-// for this kernel.  The device must be current.
-template <class Kernel>
-cudaError_t opt_in_smem(Kernel kernel, size_t bytes, int device,
-                        bool (&done)[64]) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (!done[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    done[device] = true;
-  }
-  return cudaSuccess;
-}
-
 // Whether 8-byte copies of texel pairs may be used: hi rows start on
 // even texels (2lw texels a row, 4*lh*lw a plane), so only the base
 // pointer's alignment decides.

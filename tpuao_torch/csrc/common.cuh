@@ -140,39 +140,11 @@ __device__ __forceinline__ float ao_of_vis(float vis, float strength) {
   return powf(clamp01(vis), strength);
 }
 
-// AO at texel (r, c) of one level, its depth taps read through `z` (a
-// functor over padded coordinates, e.g. a ring in shared memory; see
-// ring.cuh) with the pair offsets of the runtime table.  With kTangent,
-// (gx, gy) and off_scale as in tangent_rel.
-template <int NP, bool kTangent = false, class Taps>
-__device__ __forceinline__ float render_texel(const Taps& z, int r, int c,
-                                              const PairTable& pt,
-                                              float falloff, float strength,
-                                              float gx = 0.0f,
-                                              float gy = 0.0f,
-                                              float off_scale = 0.0f) {
-  const float inv_zc = 1.0f / z(r, c);
-  float vis = 0.0f;
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    const Pair pr = pt.p[k];
-    float e1 = 1.0f, e2 = 1.0f;  // expected depth ratios 1 +- rel
-    if constexpr (kTangent) {
-      const float rel = tangent_rel(gx, gy, (float)pr.dx * off_scale,
-                                    (float)pr.dy * off_scale, pt.m2[k]);
-      e1 = __fadd_rn(1.0f, rel);
-      e2 = __fsub_rn(1.0f, rel);
-    }
-    vis = __fadd_rn(vis, pair_vis(z(r + pr.dy, c + pr.dx),
-                                  z(r - pr.dy, c - pr.dx), inv_zc, e1, e2,
-                                  pr.inv_r, pr.half_w, falloff));
-  }
-  return ao_of_vis(vis, strength);
-}
-
 // Pair K onwards of render_tile_texel's sum (a compile-time recursion, so
 // each pair's offsets are constant expressions and every tap a load at an
-// immediate offset); returns vis after the last pair.
+// immediate offset); returns vis after the last pair.  Each pair adds
+// pair_vis of its taps z(+d), z(-d), with the expected depth ratios
+// 1 +- rel of the tangent term (1 without it).
 template <int NP, int K, int kPitch, bool kTangent>
 __device__ __forceinline__ float pairs_from(const float* z,
                                             const PairTable& pt,
@@ -200,8 +172,10 @@ __device__ __forceinline__ float pairs_from(const float* z,
 
 // AO of the texel whose depth is at *z in a tile of the parity-4 padded
 // level in shared memory (row pitch kPitch, at least 16 texels of halo
-// around the texel), with the compile-time pair offsets.  The same
-// operations in the same order as render_texel, so the same bits.
+// around the texel), with the compile-time pair offsets.  With kTangent,
+// (gx, gy) and off_scale as in tangent_rel.  Every kernel that renders
+// calls this, so two kernels that see the same tap values give the same
+// bits.
 template <int NP, int kPitch, bool kTangent = false>
 __device__ __forceinline__ float render_tile_texel(const float* z,
                                                    const PairTable& pt,
@@ -213,6 +187,32 @@ __device__ __forceinline__ float render_tile_texel(const float* z,
   return ao_of_vis(pairs_from<NP, 0, kPitch, kTangent>(
                        z, pt, falloff, gx, gy, off_scale, 1.0f / z[0], 0.0f),
                    strength);
+}
+
+// The render block of render.cu and render_dma.cu: 64 x 8 threads, a
+// thread's texels 8 rows apart, the staged level's row pitch the block's
+// 64 columns plus the 16-texel halo on each side.
+constexpr int kRenderCols = 64;       // tile columns = blockDim.x
+constexpr int kRenderThreadRows = 8;  // blockDim.y
+constexpr int kRenderThreads = kRenderCols * kRenderThreadRows;
+constexpr int kRenderPitch = kRenderCols + 32;
+
+// Lets `kernel` take `bytes` of dynamic shared memory on `device`: above
+// 48 KB a kernel opts in, once per device; `done` is the caller's record
+// for this kernel.  The device must be current.
+template <class Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t bytes, int device,
+                        bool (&done)[64]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!done[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    done[device] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace tpuao

@@ -50,13 +50,8 @@ enum Mode : int {
   kNormals = 2,  // a = raw normals (batch, 3, h, w); scale = texel_scale
 };
 
-constexpr int kRenderCols = 64;       // tile columns = blockDim.x
-constexpr int kRenderThreadRows = 8;  // blockDim.y; a thread's texels are
-                                      // this many rows apart
-constexpr int kRenderThreads = kRenderCols * kRenderThreadRows;
-constexpr int kRenderPitch = kRenderCols + 32;  // tile + halo, in floats
-
-// Three blocks an SM: at most 40 registers a thread (it takes 27-40).
+// The block and tile pitch: kRenderCols, kRenderThreadRows, kRenderPitch
+// (common.cuh).  Three blocks an SM: at most 40 registers a thread (it takes 27-40).
 template <int NP, int MODE, int NT>
 __global__ void __launch_bounds__(kRenderThreads, 3)
 render_kernel(const float* __restrict__ z, const float* __restrict__ a,

@@ -2,7 +2,8 @@
 // straight from the unpadded (h, w) level in device memory: no padded copy
 // is built, the apron is formed when an address is formed.  Used by the
 // tiled kernels (render.cu, fused.cu, upsample.cu via chain_step.cuh) and
-// by the rings of the kernels that walk a strip (ring.cuh, fused_zc.cu).
+// by the kernels that walk a strip (fused_zc.cu's ring, render_dma.cu's
+// segment window).
 #pragma once
 
 #include <cstdint>

@@ -15,7 +15,10 @@ tensors are on.
   the upsample kernel for the first step d -> d-1 (no pre-min), and the
   fused render+upsample kernel for every step after it -- 1 + 1 + (d-1)
   launches per call at hierarchy depth d, whatever the batch size (the
-  batch is a grid dimension of each kernel).
+  batch is a grid dimension of each kernel).  With ``debug_outputs``,
+  ``"auto"`` also renders levels 1..d-1 for the debug dict (d render
+  launches), as the JAX package's ``"auto"`` returns every level;
+  ``"fused"`` returns level d alone, as the JAX package's does.
 
 With normals (``params.use_normals``, the ``ULTRA`` preset) there is no
 fused step: the normals render kernel runs at every level (slope planes
@@ -96,7 +99,11 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     channel-first normals under ``"pallas"`` -- and every chain step is
     the upsample kernel with pre-min: the fused kernel is depth-only.
     ``all_levels`` renders every level even where the frame does not need
-    them (``enable_blur=False``), for the debug dict.  ``stop_at_level1``
+    them, for the debug dict: levels 2..d without blur, and levels
+    1..d-1 under ``"auto"``'s fused chain (which renders them inside the
+    fused kernel) -- as the JAX package's ``"auto"``, its jnp path,
+    returns them; ``"fused"`` keeps only level d, as the JAX package's
+    does.  ``stop_at_level1``
     stops before the final step 1 -> 0 and returns the level-1 field
     ``min(combined_1, AO_1)`` at padded level-1 dims instead (``AO_1``
     alone without blur or at depth 1): what the level-1 temporal resolve
@@ -126,6 +133,8 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     fused = impl in ("auto", "fused") and params.enable_blur and not use_n
     if not params.enable_blur:
         levels = range(1, d + 1) if all_levels else (1,)
+    elif fused and all_levels and impl == "auto":
+        levels = range(1, d + 1)  # 1..d-1 for the dict only
     elif fused:
         levels = (d, 1) if stop_at_level1 and d > 1 else (d,)
     else:

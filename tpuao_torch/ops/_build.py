@@ -27,7 +27,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
            "render_dma.cu", "fused_zc.cu", "selftest.cu")
-HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh", "ring.cuh")
+HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh")
 # Each library binds its own symbols: two builds loaded in one process (an
 # older tree's kernels timed beside these) share the names of their
 # templates, and a static inside a template function (a launcher's record

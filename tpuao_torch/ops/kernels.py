@@ -170,18 +170,58 @@ def _radius_coef(level: int, full_width: int, camera, params) -> float:
 
 
 # ---------------------------------------------------------------------------
-# 1d. Per-level AO estimator, double-buffered (replaces
+# 1d. Per-level AO estimator walking the level in row windows (replaces
 #     pallas_kernels.render_ao_level_dma)
 # ---------------------------------------------------------------------------
 
 
+_SMS = 132  # H100 SXM
+DMA_MAX_ROWS = 160  # a segment's window in shared memory: (160 + 32) x 96
+
+
+def dma_nt(seg: int) -> int:
+    """Texels a thread of ``csrc/render_dma.cu`` for a segment of ``seg``
+    rows: the largest of 4, 2, 1 whose step (8 rows a texel) divides it,
+    so no step renders rows past its segment.  The kernel's launcher takes
+    it by the same rule."""
+    return 4 if seg % 32 == 0 else 2 if seg % 16 == 0 else 1
+
+
+@functools.lru_cache(maxsize=256)
+def dma_rows(row_tile: int, batch: int, h: int, w: int) -> int:
+    """Rows a block of ``csrc/render_dma.cu`` walks: at most ``row_tile``
+    (and 160, its shared memory).
+
+    Of the multiples of 8 up to that bound (and up to the first one that
+    covers ``h``), the segment whose busiest SM renders the fewest rows:
+    the grid's ``ceil(w / 64)`` strips x ``ceil(h / seg)`` segments x
+    ``batch`` blocks spread over the 132 SMs as the blocks finish, so the
+    busiest takes ``ceil(blocks / 132)`` of them, each ``seg + 2`` rows
+    (the 2 for a block's start: its barriers and its first window's
+    latency).  On a tie the larger segment.  A ``row_tile`` below 8 is
+    the segment itself."""
+    row_tile = _row_tile(row_tile)
+    if row_tile < 8:
+        return row_tile
+    strips = -(-w // 64)
+    best = (None, 0)
+    top = min(row_tile, DMA_MAX_ROWS, -(-h // 8) * 8)
+    for seg in range(8, top + 1, 8):
+        rounds = -(-strips * -(-h // seg) * batch // _SMS)
+        cost = rounds * (seg + 2)
+        if best[0] is None or cost <= best[0]:
+            best = (cost, seg)
+    return best[1]
+
+
 def render_ao_level_dma(ds: torch.Tensor, level: int, full_width: int,
                         camera, params, row_tile: int = 128) -> torch.Tensor:
-    """Depth-only AO of one (..., h, w) level with the level staged in
-    shared memory by a double-buffered cp.async pipeline; kernel
-    ``csrc/render_dma.cu``, whose blocks walk ``min(row_tile, h)`` rows
-    each.  ``row_tile`` does not change the result; normals are not taken
-    (as in the JAX package).  Its plain version is
+    """Depth-only AO of one (..., h, w) level, each block walking a strip
+    of the level in row windows, the later windows' rows landing in
+    shared memory while the earlier ones render; kernel
+    ``csrc/render_dma.cu``, whose blocks walk ``dma_rows(row_tile, ...)``
+    rows each.  ``row_tile`` does not change the result; normals are not
+    taken (as in the JAX package).  Its plain version is
     ``render_ao_level_plain``."""
     _check("ds", ds)
     row_tile = _row_tile(row_tile)
@@ -192,9 +232,10 @@ def render_ao_level_dma(ds: torch.Tensor, level: int, full_width: int,
     h, w = ds.shape[-2:]
     _check_level(h, w)
     table = _level_table(params, level, full_width, camera)
+    batch = _batch(lead)
     out = torch.empty_like(ds)
     _launch("tpuao_render_ao_level_dma", ds.data_ptr(), out.data_ptr(),
-            _batch(lead), h, w, min(row_tile, h), table.ctypes.data,
+            batch, h, w, dma_rows(row_tile, batch, h, w), table.ctypes.data,
             len(table), float(params.rejection_falloff),
             float(params.strength), ds.device.index, _stream(ds.device))
     render_ao_level_dma.launches += 1
