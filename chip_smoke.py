@@ -69,7 +69,19 @@ Phases, one or more lines each:
               exists), timed in turns (parent, new, new, parent), with
               each kernel's output held against the older one's; then the
               device time by kernel and the idle share of the HIGH path at
-              one and four frames a call and of the ULTRA path.
+              one and four frames a call and of the ULTRA path;
+13. cli and views -- ``python -m tpuao_torch`` in-process on 1080p files
+              in a temporary directory: the frame (bit-equal to
+              render_frame, launches 1/1/3), PNG bytes, colour, ULTRA
+              normals (4/4), the debug dump under auto, pallas and fused
+              (every leaf equal to the in-memory dict, combined_0's
+              interior equal to the cropped step), 8 frames at --batch 4
+              (2x the frame's launches), --temporal --camera-path (7
+              windowed resolves, equal to TemporalAOEngine), info; then
+              render_views_sharded on 8 1080p views, a uniform rig (5
+              launches) and one of 4 distinct (FOV, strength) pairs (20),
+              every view bit-equal to render_frame with its own scalars,
+              colour + uint8 too; host-clock and device times of both.
 
 Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
@@ -90,6 +102,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 TOL = 1e-5  # kernel vs plain version, both float32 on the card
@@ -928,6 +941,273 @@ def phase_serving(chk, dev, K, F, cam, card):
     return run
 
 
+def run_cli(argv) -> None:
+    """``tpuao_torch.cli.main`` in-process, as ``python -m tpuao_torch``
+    runs it; raises unless it exits 0."""
+    from tpuao_torch import cli
+
+    rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise RuntimeError(f"tpuao_torch {' '.join(map(str, argv))}: "
+                           f"exit {rc}")
+
+
+def cli_counts(K, label, want, argv) -> float:
+    """Run the CLI with the launch counts set to 0 just before and read
+    just after; returns its host-clock seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    expect_counts(K, label, want)
+    print(f"  {label}: launches {K.launch_counts()}, {sec:.3f} s",
+          flush=True)
+    return sec
+
+
+def phase_cli(chk, dev, K, F, card, tmp):
+    """13a. ``python -m tpuao_torch`` (in-process) on 1080p files in
+    ``tmp``: the single frame (PFM, PNG, colour, ULTRA normals), the debug
+    dump under auto, pallas and fused, an 8-frame sequence at --batch 4,
+    the temporal sequence along a camera path, and ``info``; every output
+    held against the port's entry points on the card."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpuao_torch.models.pipeline import TemporalAOEngine, render_frame
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import AOParams, CameraParams, padded_shape
+    from tpuao_torch.utils.debug_dump import _flatten, load_debug_buffers
+    from tpuao_torch.utils.frameio import load_pfm, load_pfm_batch, save_pfm
+    from tpuao_torch.utils import native
+    from tpuao_torch.utils.io import encode_ao_png
+
+    h0, w0 = 1080, 1920
+    print(f"cli (python -m tpuao_torch, in-process, {h0}x{w0}) [{card}]:")
+    cam_hw, cam = CameraParams(), CameraParams(depth_mode="linear")
+    z, n = F.spheres_on_plane(h0, w0, cam_hw, seed=SEED, with_normals=True)
+    zh = F.to_hardware_depth(z, cam_hw).astype(np.float32)
+    n = n.astype(np.float32)
+    rgb = np.random.default_rng(SEED).integers(0, 256, (h0, w0, 3),
+                                               dtype=np.uint8)
+    depth, nrm, col = tmp / "depth.pfm", tmp / "normals.pfm", tmp / "c.png"
+    save_pfm(str(depth), zh)
+    save_pfm(str(nrm), n)
+    Image.fromarray(rgb).save(col)
+    frames, views = dolly_frames(F, cam, h0, w0, 8)
+    seq = tmp / "seq"
+    seq.mkdir()
+    for t, (zt, _) in enumerate(frames):
+        save_pfm(str(seq / f"f{t}.pfm"), zt)
+    path = tmp / "path.json"
+    path.write_text(json.dumps([v.ravel().tolist() for v in views]))
+    on = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    d = on(zh)
+    high = counts(render_ao_level=1, blur_upsample_step=1,
+                  fused_render_upsample_step=3)
+
+    cli_counts(K, "frame (depth.pfm -> ao.pfm)", high,
+               ["render", depth, tmp / "ao.pfm"])
+    want = render_frame(d, cam_hw, AOParams())
+    chk.close("", "cli frame vs render_frame", on(load_pfm(str(
+        tmp / "ao.pfm"))), want, tol=0.0)
+    run_cli(["render", depth, tmp / "ao.png"])
+    if (tmp / "ao.png").read_bytes() != encode_ao_png(want.cpu().numpy()):
+        raise RuntimeError("cli PNG bytes differ from encode_ao_png of "
+                           "render_frame")
+    print("  ao.png: bytes equal encode_ao_png(render_frame)")
+    run_cli(["render", depth, tmp / "aoc.pfm", "--color", col])
+    chk.close("", "cli --color vs render_frame",
+              on(load_pfm(str(tmp / "aoc.pfm"))),
+              render_frame(d, cam_hw, AOParams(),
+                           color=on(rgb.astype(np.float32) / 255.0)),
+              tol=0.0)
+    cli_counts(K, "ULTRA --normals", counts(render_ao_level_normals=4,
+                                            blur_upsample_step=4),
+               ["render", depth, tmp / "aon.pfm", "--preset", "ULTRA",
+                "--normals", nrm])
+    chk.close("", "cli ULTRA --normals vs render_frame",
+              on(load_pfm(str(tmp / "aon.pfm"))),
+              render_frame(d, cam_hw, preset("ULTRA"), normals=on(n)),
+              tol=0.0)
+
+    for impl, c in (("auto", counts(render_ao_level=4, blur_upsample_step=1,
+                                    fused_render_upsample_step=3)),
+                    ("pallas", counts(render_ao_level=4,
+                                      blur_upsample_step=4)),
+                    ("fused", high)):
+        dump = tmp / f"dbg_{impl}.npz"
+        cli_counts(K, f"--debug-dump, impl={impl}", c,
+                   ["render", depth, tmp / "aod.pfm", "--impl", impl,
+                    "--debug-dump", dump])
+        got = load_debug_buffers(str(dump))
+        _, dbg = render_frame(d, cam_hw, AOParams(), impl=impl,
+                              debug_outputs=True)
+        mem = _flatten(dbg)
+        if sorted(got) != sorted(mem):
+            raise RuntimeError(f"dump {impl}: keys {sorted(got)} != "
+                               f"{sorted(mem)}")
+        for k, v in mem.items():
+            if got[k].shape != v.shape or not np.array_equal(got[k], v):
+                raise RuntimeError(f"dump {impl} {k}: {got[k].shape} vs "
+                                   f"the in-memory {v.shape}")
+        c0 = got["combined_0"]
+        if c0.shape != (padded_shape(h0, w0) if impl != "auto"
+                        else (h0, w0)):
+            raise RuntimeError(f"dump {impl}: combined_0 {c0.shape}")
+        chk.close("", f"dump {impl}: {len(got)} leaves equal the in-memory "
+                  f"dict; combined_0 {c0.shape} interior vs the cropped "
+                  "step", on(c0[:h0, :w0]),
+                  render_frame(d, cam_hw, AOParams(), impl=impl), tol=0.0)
+
+    out = tmp / "out"
+    sec = cli_counts(K, "sequence, 8 frames --batch 4",
+                     {k: 2 * v for k, v in high.items()},
+                     ["render", seq / "f*.pfm", out, "--batch", "4",
+                      "--depth-mode", "linear"])
+    zs = [on(zt) for zt, _ in frames]
+    batch_err = single_err = 0.0
+    for b in (0, 4):
+        ref = render_frame(torch.stack(zs[b:b + 4]), cam, AOParams())
+        for j in range(4):
+            got = on(load_pfm(str(out / f"f{b + j}_ao.pfm")))
+            batch_err = max(batch_err, chk.close(
+                "", None, got, ref[j], tol=0.0, quiet=True))
+            single_err = max(single_err, chk.close(
+                "", None, got, render_frame(zs[b + j], cam, AOParams()),
+                tol=0.0, quiet=True))
+    print(f"  sequence files vs render_frame: batch of 4 max_abs_err="
+          f"{batch_err:.3e}, one frame a call {single_err:.3e}")
+    # where the sequence's host time goes, by the same calls one at a time
+    paths = [str(seq / f"f{t}.pfm") for t in range(4)]
+    split = {"decode": [], "render": [], "encode": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        arr = load_pfm_batch(paths)
+        t1 = time.perf_counter()
+        ao = render_frame(arr, cam, AOParams()).cpu().numpy()
+        t2 = time.perf_counter()
+        for j in range(4):
+            save_pfm(str(tmp / f"enc{j}.pfm"), ao[j])
+        t3 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(v / 4)
+    print(f"  sequence host clock: {sec / 8 * 1e3:.2f} ms/frame through the "
+          f"CLI (8 frames, --batch 4, process already warm); per frame, "
+          f"best of 3 batches of 4: decode {min(split['decode']) * 1e3:.2f}"
+          f" ms, upload+render+download {min(split['render']) * 1e3:.2f} "
+          f"ms, encode {min(split['encode']) * 1e3:.2f} ms; PFM codec: "
+          f"{'native' if native.get_lib() is not None else 'NumPy'} "
+          f"[{card}]", flush=True)
+
+    tout = tmp / "tout"
+    cli_counts(K, "--temporal --camera-path, 8 frames",
+               {**{k: 8 * v for k, v in high.items()},
+                "windowed_resolve": 7},
+               ["render", seq / "f*.pfm", tout, "--temporal",
+                "--camera-path", path, "--depth-mode", "linear"])
+    eng = TemporalAOEngine(cam)
+    worst = max(chk.close("", None, on(load_pfm(str(tout / f"f{t}_ao.pfm"))),
+                          eng.render(zs[t], view=views[t]), tol=0.0,
+                          quiet=True) for t in range(8))
+    print(f"  temporal files vs TemporalAOEngine: max_abs_err={worst:.3e}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli(["info"])
+    info = json.loads(buf.getvalue())
+    if info["devices"][:1] != [torch.cuda.get_device_name(0)] or \
+            not info["cuda_available"]:
+        raise RuntimeError(f"info: {info}")
+    print(f"  info: {json.dumps(info)}")
+
+
+def phase_rigs(chk, dev, K, F, card):
+    """13b. ``render_views_sharded`` on 8 1080p views: a uniform rig and a
+    rig of 4 distinct (FOV, strength) pairs each used twice, their launch
+    counts, every view against ``render_frame`` with its own scalars (and
+    colour + uint8), and their time beside ``render_frame`` on the same 8
+    views as one batch."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models.pipeline import render_frame
+    from tpuao_torch.params import AOParams, CameraParams
+    from tpuao_torch.parallel.sharding import render_views_sharded
+    from tpuao_torch.utils.timing import cuda_time_ms
+
+    h0, w0, v = 1080, 1920, 8
+    print(f"views (render_views_sharded, 8 x {h0}x{w0}, per_view rigs) "
+          f"[{card}]:")
+    cam = CameraParams(depth_mode="linear")
+    z = torch.as_tensor(np.stack([F.spheres_on_plane(h0, w0, cam, seed=s)
+                                  for s in range(v)]).astype(np.float32),
+                        device=dev)
+    rgb = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, 256, (v, h0, w0, 3), dtype=np.uint8), device=dev)
+    fovs = [50.0, 60.0, 75.0, 90.0] * 2
+    strengths = [0.7, 1.0, 1.5, 2.5] * 2
+
+    def rig(fov, strength):
+        tan = [math.tan(math.radians(f) / 2) for f in fov]
+        c = cam.replace(near=np.full(v, cam.near), far=np.full(v, cam.far),
+                        tan_half_fov_h=np.asarray(tan))
+        p = AOParams(strength=np.asarray(strength, np.float64),
+                     **{k: np.full(v, getattr(AOParams(), k)) for k in (
+                         "noise_filter_tolerance", "blur_tolerance",
+                         "upsample_tolerance", "rejection_falloff")})
+        own = [(cam.replace(tan_half_fov_h=tan[i]),
+                AOParams(strength=strength[i])) for i in range(v)]
+        return c, p, own
+
+    rigs = {"uniform": (rig([60.0] * v, [1.0] * v), counts(
+                render_ao_level=1, blur_upsample_step=1,
+                fused_render_upsample_step=3)),
+            "4 pairs": (rig(fovs, strengths), counts(
+                render_ao_level=4, blur_upsample_step=4,
+                fused_render_upsample_step=12))}
+    fns = {}
+    for name, ((c, p, own), want) in rigs.items():
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = render_views_sharded(z, c, p, per_view=True)
+        torch.cuda.synchronize()
+        expect_counts(K, f"rig {name}", want)
+        q = render_views_sharded(z, c, p, per_view=True, color=rgb,
+                                 out_dtype="uint8")
+        err = qerr = 0.0
+        for i, (ci, pi) in enumerate(own):
+            err = max(err, chk.close("", None, out[i],
+                                     render_frame(z[i], ci, pi), tol=0.0,
+                                     quiet=True))
+            qi = render_frame(z[i], ci, pi, color=rgb[i], out_dtype="uint8")
+            qerr = max(qerr, chk.close("", None, q[i], qi, tol=0.0,
+                                       quiet=True))
+        print(f"  rig {name}: launches {sum(want.values())} {want}; every "
+              f"view vs render_frame with its own scalars max_abs_err="
+              f"{err:.3e}, colour uint8 codes {qerr:.0f}", flush=True)
+        fns[f"rig {name}"] = (lambda c=c, p=p:
+                              render_views_sharded(z, c, p, per_view=True))
+    fns["render_frame, one batch"] = lambda: render_frame(z, cam, AOParams())
+    for name, fn in fns.items():
+        ev = cuda_time_ms(fn)
+        device, _, nk = device_profile(fn)
+        print(f"  {name}: {ev / v:.4f} ms/view by events, {device / v:.4f} "
+              f"ms/view device (torch.profiler, {nk:.0f} kernels a call), "
+              f"idle share {1 - device / ev:.2f} [{card}]", flush=True)
+    del z, rgb
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -1217,6 +1497,12 @@ def device_profile(fn, calls=20):
                           name)[:60]
             by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
+    if n % calls:
+        # every path here launches the same kernels each call: a count
+        # that does not divide means the profiler dropped kernel records,
+        # and the device time below is short by about the same share
+        print(f"  note: torch.profiler saw {n} kernels over {calls} calls "
+              f"({n / calls:.2f} a call): records were lost")
     return sum(by.values()) / calls, by, n / calls
 
 
@@ -1492,6 +1778,11 @@ def main(argv=None) -> int:
 
     # 12: the redesigned kernels beside the parent's, bounds, shares
     phase_parent(dev, K, P, R, F, cam, card, parent)
+
+    # 13: the CLI and one-card multi-view, each asserting its own counts
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(chk, dev, K, F, card, pathlib.Path(tmp))
+    phase_rigs(chk, dev, K, F, card)
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera

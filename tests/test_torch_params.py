@@ -224,6 +224,12 @@ def test_import_loads_no_jax():
         "import tpuao_torch.utils.frameio, tpuao_torch.utils.native\n"
         "import tpuao_torch.utils.batching, tpuao_torch.utils.resilience\n"
         "import tpuao_torch.utils.io, tpuao_torch.parallel.sharding\n"
+        "import tpuao_torch.cli, tpuao_torch.utils.debug_dump, runpy\n"
+        "sys.argv = ['tpuao_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tpuao_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpuao'))\n"

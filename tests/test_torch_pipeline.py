@@ -192,6 +192,45 @@ def test_debug_outputs():
     assert sorted(dbg["ao_levels"]) == [1, 2, 3, 4]
 
 
+def _leaves(tree, prefix=""):
+    """A debug dict's leaves by '/'-joined key."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("impl", TPL.IMPLS)
+@pytest.mark.parametrize("hw", [(100, 150), (135, 240)])
+def test_debug_dict_matches_tpuao_at_padded_sizes(hw, impl):
+    """At sizes that pad (135 x 240 is 1080p / 8), the debug dict has
+    tpuao's keys and leaf shapes under every impl -- ``combined_0`` is the
+    padded buffer under "pallas" and "fused", the cropped frame under
+    "auto" and "jnp" -- with values within 1e-5, and the frame equals the
+    call without the dict bit for bit."""
+    z, cam, jcam, _ = scene(*hw)
+    out, dbg = render_frame(z, cam, AOParams(), debug_outputs=True,
+                            impl=impl, device="cpu")
+    _, jdbg = JPL.render_frame(z, jcam, JAOParams(), debug_outputs=True,
+                               impl=impl)
+    got, want = _leaves(dbg), _leaves(jdbg)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
+        np.testing.assert_allclose(got[k], v, atol=TOL, err_msg=k)
+    padded = impl in ("pallas", "fused")
+    assert got["combined_0"].shape == (
+        tuple(-(-s // 64) * 64 for s in hw) if padded else hw)
+    np.testing.assert_array_equal(
+        out.numpy(), render_frame(z, cam, AOParams(), impl=impl,
+                                  device="cpu").numpy())
+    np.testing.assert_array_equal(got["combined_0"][:hw[0], :hw[1]],
+                                  out.numpy())
+
+
 def test_debug_outputs_fused_hold_the_coarsest_level(monkeypatch):
     """impl="fused" renders levels 1..d-1 inside the fused chain and
     returns level d alone, as tpuao's "fused" does; and "auto" renders the

@@ -3,19 +3,28 @@
 ``render_views`` is the frame pipeline over a leading views axis, which the
 port's kernels take as their grid's batch; it is held against tpuao's
 vmapped ``render_views`` (impl="jnp") to 1e-5, float32 against float32.
+``render_views_sharded`` and the engine's ``render_views`` are held against
+tpuao's on a 4-device CPU mesh (the conftest's fake devices), 4 views.
 """
+
+import dataclasses
+import math
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from tpuao.models import pipeline as JPL
+from tpuao.models.presets import preset as jpreset
 from tpuao.params import AOParams as JAOParams
 from tpuao.params import CameraParams as JCameraParams
 from tpuao.parallel import sharding as JSH
 
-from tpuao_torch.models.pipeline import render_frame
-from tpuao_torch.params import AOParams, CameraParams
+from tpuao_torch.models.pipeline import AmbientOcclusionEngine, render_frame
+from tpuao_torch.models.presets import preset
+from tpuao_torch.ops import kernels as K
+from tpuao_torch.params import AOParams, CameraParams, from_tpuao
 from tpuao_torch.parallel import sharding as SH
 from tpuao_torch.utils import fixtures as F
 
@@ -68,5 +77,193 @@ def test_pad_leading_matches_tpuao(pad):
 
 
 def test_multi_card_modes_are_not_defined():
-    for name in ("render_views_sharded", "make_mesh"):
+    """One card only: no make_mesh, no temporal fleet, and a mesh of
+    more than one device raises rather than rendering on one card."""
+    for name in ("make_mesh", "render_sequences_temporal_sharded"):
         assert not hasattr(SH, name)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        SH.render_views_sharded(views(2), CameraParams(depth_mode="linear"),
+                                mesh=["cpu", "cpu"], device="cpu")
+    with pytest.raises(ValueError, match="no device"):
+        SH.render_views_sharded(views(2), mesh=[], device="cpu")
+
+
+def test_mesh_and_device_must_agree():
+    """A one-device mesh and ``device=`` naming different devices raise
+    rather than one silently winning; naming the same one renders."""
+    cam = CameraParams(depth_mode="linear")
+    with pytest.raises(ValueError, match="mesh names cpu"):
+        SH.render_views_sharded(views(2), cam, mesh=["cpu"], device="cuda")
+    got = SH.render_views_sharded(views(2), cam, mesh=[torch.device("cpu")],
+                                  device="cpu")
+    want = SH.render_views_sharded(views(2), cam, device="cpu")
+    assert torch.equal(got, want)
+
+
+# -- render_views_sharded against tpuao's on a 4-device CPU mesh ------------
+
+V, VH, VW = 4, 64, 128
+LIN = dict(depth_mode="linear")
+
+
+def _jax_mesh():
+    return JSH.make_mesh(4)
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("case", ["uniform", "normals", "color_uint8",
+                                  "debug"])
+def test_render_views_sharded_matches_tpuao(case):
+    if case == "normals":
+        z, n = views(V, VH, VW, normals=True)
+    else:
+        z, n = views(V, VH, VW), None
+    par = dict(use_normals=case == "normals", strength=1.5)
+    kw = {}
+    if case == "color_uint8":
+        rng = np.random.default_rng(5)
+        kw = dict(color=rng.integers(0, 256, (V, VH, VW, 3), dtype=np.uint8),
+                  out_dtype="uint8")
+    if case == "debug":
+        kw = dict(debug_outputs=True)
+    got = SH.render_views_sharded(z, CameraParams(**LIN), AOParams(**par),
+                                  normals=n, device="cpu", **kw)
+    want = JSH.render_views_sharded(
+        jnp.asarray(z), JCameraParams(**LIN), JAOParams(**par),
+        normals=None if n is None else jnp.asarray(n), mesh=_jax_mesh(),
+        **kw)
+    if case == "debug":
+        (got, dbg), (want, jdbg) = got, want
+        g, w = _leaves(dbg), _leaves(jdbg)
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert g[k].shape == w[k].shape and g[k].shape[0] == V, k
+            np.testing.assert_allclose(g[k], w[k], atol=TOL, err_msg=k)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.numpy().dtype == want.dtype
+    if case == "color_uint8":  # integer codes: float noise may move one
+        assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    # the same batch through render_frame: bit for bit
+    ref = render_frame(z, CameraParams(**LIN), AOParams(**par), normals=n,
+                       device="cpu", **kw)
+    ref = ref[0] if case == "debug" else ref
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def _rig(fovs, strengths):
+    """A four-view rig (near, far, fov and strength per view) in both
+    packages: the port's through ``params.from_tpuao``."""
+    tan = [math.tan(math.radians(f) / 2) for f in fovs]
+    jcam = JCameraParams(near=jnp.full(V, 0.1), far=jnp.full(V, 100.0),
+                         tan_half_fov_h=jnp.asarray(tan, jnp.float32),
+                         **LIN)
+    jpar = JAOParams(**{k: jnp.full(V, getattr(JAOParams(), k))
+                        for k in SH.RIG_PARAM_FIELDS if k != "strength"},
+                     strength=jnp.asarray(strengths, jnp.float32))
+    par, cam = from_tpuao(_fields(jpar), _fields(jcam))
+    return cam, par, jcam, jpar
+
+
+def test_per_view_rig_matches_tpuao_and_each_view_its_own_frame():
+    z = views(V, VH, VW)
+    cam, par, jcam, jpar = _rig([50.0, 60.0, 75.0, 90.0],
+                                [0.5, 1.0, 2.0, 3.0])
+    assert isinstance(cam.tan_half_fov_h, np.ndarray)
+    assert cam.tan_half_fov_h.shape == (V,)
+    got = SH.render_views_sharded(z, cam, par, per_view=True, device="cpu")
+    want = np.asarray(JSH.render_views_sharded(
+        jnp.asarray(z), jcam, jpar, mesh=_jax_mesh(), per_view=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    for i in range(V):  # each view with its own scalars, bit for bit
+        own_c = cam.replace(**{k: float(getattr(cam, k)[i])
+                               for k in SH.RIG_CAMERA_FIELDS})
+        own_p = par.replace(**{k: float(getattr(par, k)[i])
+                               for k in SH.RIG_PARAM_FIELDS})
+        np.testing.assert_array_equal(
+            got[i].numpy(), render_frame(z[i], own_c, own_p,
+                                         device="cpu").numpy())
+    # the views differ: the rig reached every one
+    assert len({float(got[i].mean()) for i in range(V)}) == V
+
+
+def test_per_view_rig_groups_views_that_share_their_values(monkeypatch):
+    """A rig of 4 views with 2 distinct value sets renders 2 batches (one
+    coarsest-level render call each), writes them back in view order, and
+    keeps colour, uint8 and the debug leaves per view."""
+    z = views(V, VH, VW)
+    cam, par, _, _ = _rig([60.0, 80.0, 60.0, 80.0], [1.0, 2.0, 1.0, 2.0])
+    rng = np.random.default_rng(9)
+    color = rng.integers(0, 256, (V, VH, VW, 3), dtype=np.uint8)
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[0].shape[0])
+                        or real(*a, **k))
+    got, dbg = SH.render_views_sharded(z, cam, par, color=color,
+                                       out_dtype="uint8", debug_outputs=True,
+                                       per_view=True, device="cpu")
+    assert calls.count(2) == 8 and len(calls) == 8  # 2 groups x 4 levels
+    calls.clear()
+    SH.render_views_sharded(z, cam, par, per_view=True, device="cpu")
+    assert calls == [2, 2]  # one render of the coarsest level a group
+    for i in range(V):
+        own_c = cam.replace(tan_half_fov_h=float(cam.tan_half_fov_h[i]),
+                            near=0.1, far=100.0)
+        own_p = par.replace(**{k: float(getattr(par, k)[i])
+                               for k in SH.RIG_PARAM_FIELDS})
+        out, odbg = render_frame(z[i], own_c, own_p, color=color[i],
+                                 out_dtype="uint8", debug_outputs=True,
+                                 device="cpu")
+        np.testing.assert_array_equal(got[i].numpy(), out.numpy())
+        for k, v in _leaves(odbg).items():
+            np.testing.assert_array_equal(_leaves(dbg)[k][i], v, err_msg=k)
+    assert got.dtype == torch.uint8 and got.shape == color.shape
+
+
+def test_per_view_rejects_leaves_of_another_shape():
+    z = views(V, VH, VW)
+    cam, par, _, _ = _rig([60.0] * V, [1.0] * V)
+    with pytest.raises(ValueError, match="per_view"):
+        SH.render_views_sharded(z, cam.replace(near=0.1), par,
+                                per_view=True, device="cpu")
+    with pytest.raises(ValueError, match="per_view"):
+        SH.render_views_sharded(z, cam, par.replace(strength=np.ones(3)),
+                                per_view=True, device="cpu")
+    # a uniform rig is one batch, equal to the scalar call
+    np.testing.assert_array_equal(
+        SH.render_views_sharded(z, cam, par, per_view=True,
+                                device="cpu").numpy(),
+        SH.render_views_sharded(
+            z, CameraParams(tan_half_fov_h=float(cam.tan_half_fov_h[0]),
+                            **LIN), AOParams(), device="cpu").numpy())
+
+
+def test_engine_render_views_matches_tpuao():
+    z, n = views(V, VH, VW, normals=True)
+    eng = AmbientOcclusionEngine(CameraParams(**LIN), preset("ULTRA"),
+                                 out_dtype="uint8", device="cpu")
+    jeng = JPL.AmbientOcclusionEngine(JCameraParams(**LIN),
+                                      jpreset("ULTRA"), out_dtype="uint8")
+    got = eng.render_views(z, normals=n)
+    want = np.asarray(jeng.render_views(jnp.asarray(z),
+                                        normals=jnp.asarray(n),
+                                        mesh=_jax_mesh()))
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got.numpy(),
+                                  eng.render(z, normals=n).numpy())

@@ -2,8 +2,10 @@
 
 The frame path of ``tpuao`` (depth [+ normals] -> linearise -> pyramid ->
 per-level AO -> blur/upsample chain -> crop [-> composite -> quantise]),
-its engines, its temporal accumulation and its HTTP serving path
-(``tpuao_torch.serving``, ``tpuao_torch.client``) in PyTorch, with every
+its engines, its temporal accumulation, one-card multi-view
+(``tpuao_torch.parallel.sharding``), its HTTP serving path
+(``tpuao_torch.serving``, ``tpuao_torch.client``) and its command line
+(``python -m tpuao_torch``, ``tpuao_torch.cli``) in PyTorch, with every
 Pallas kernel of the JAX package written by hand in CUDA C++ for
 ``sm_90a`` (``tpuao_torch/csrc``).  It imports neither ``jax`` nor
 ``tpuao``; ``tpuao`` stays the reference it is tested against::

@@ -103,7 +103,9 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     1..d-1 under ``"auto"``'s fused chain (which renders them inside the
     fused kernel) -- as the JAX package's ``"auto"``, its jnp path,
     returns them; ``"fused"`` keeps only level d, as the JAX package's
-    does.  ``stop_at_level1``
+    does.  With ``all_levels`` under ``"pallas"`` and ``"fused"``,
+    ``combined_0`` is the padded (hp, wp) buffer, as there.
+    ``stop_at_level1``
     stops before the final step 1 -> 0 and returns the level-1 field
     ``min(combined_1, AO_1)`` at padded level-1 dims instead (``AO_1``
     alone without blur or at depth 1): what the level-1 temporal resolve
@@ -151,11 +153,16 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
         ao = aos[1].repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
         return ao[..., :h0, :w0], debug
 
-    # PreMin chain, cropped to (h0, w0) inside its final step
+    # PreMin chain, cropped to (h0, w0) inside its final step -- except
+    # for the debug dict under "pallas" and the fused chain of "fused",
+    # whose final step the JAX package runs uncropped: there combined_0 is
+    # the padded buffer, and the frame is cropped from it
     combined = aos[d]
     upsample_step = _select_upsample_impl(impl)
+    padded_c0 = all_levels and (impl == "pallas"
+                                or (impl == "fused" and fused))
     for l in range(d, 1 if stop_at_level1 else 0, -1):
-        crop = (h0, w0) if l == 1 else None
+        crop = (h0, w0) if l == 1 and not padded_c0 else None
         if fused and l != d:
             combined = K.fused_render_upsample_step(
                 pyr[l], combined, pyr[l - 1], l, wp, camera, params,
@@ -167,6 +174,8 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
         debug[f"combined_{l - 1}"] = combined
     if stop_at_level1:
         return (torch.minimum(combined, aos[1]) if d > 1 else aos[1]), debug
+    if padded_c0:
+        return combined[..., :h0, :w0].contiguous(), debug
     return combined, debug
 
 
@@ -493,6 +502,18 @@ class AmbientOcclusionEngine:
         return render_frame(depth, self.camera, self._params, normals,
                             color, debug_outputs, self.impl,
                             out_dtype=self.out_dtype, device=self.device)
+
+    def render_views(self, depths, normals=None, color=None, mesh=None,
+                     debug_outputs: bool = False):
+        """[BJ] config 5 through the engine: ``render_views_sharded`` of
+        a (V, H, W) batch with the engine's camera, params, impl,
+        ``out_dtype`` and device."""
+        from tpuao_torch.parallel.sharding import render_views_sharded
+
+        return render_views_sharded(
+            depths, self.camera, self._params, normals=normals, mesh=mesh,
+            impl=self.impl, color=color, out_dtype=self.out_dtype,
+            debug_outputs=debug_outputs, device=self.device)
 
     __call__ = render
 

@@ -360,10 +360,16 @@ def from_tpuao(ao_dict: dict, camera_dict: dict, temporal_dict=None):
     returns) and returns ``(AOParams, CameraParams)``; with
     ``temporal_dict``, the fields of a ``TemporalParams``, it returns
     ``(AOParams, CameraParams, TemporalParams)``.  The tunables, the camera
-    and the temporal tunables are all the state this system carries.
+    and the temporal tunables are all the state this system carries.  A
+    camera rig's (V,) leaves (``render_views_sharded(per_view=True)``)
+    come across as float64 NumPy arrays.
     """
-    out = (params_from_dict(AOParams, dict(ao_dict)),
-           params_from_dict(CameraParams, dict(camera_dict)))
+    def leaves(d):
+        return {k: np.asarray(v, np.float64) if np.ndim(v) else v
+                for k, v in d.items()}
+
+    out = (params_from_dict(AOParams, leaves(ao_dict)),
+           params_from_dict(CameraParams, leaves(camera_dict)))
     if temporal_dict is None:
         return out
     return out + (params_from_dict(TemporalParams, dict(temporal_dict)),)
