@@ -81,13 +81,31 @@ Phases, one or more lines each:
               render_views_sharded on 8 1080p views, a uniform rig (5
               launches) and one of 4 distinct (FOV, strength) pairs (20),
               every view bit-equal to render_frame with its own scalars,
-              colour + uint8 too; host-clock and device times of both.
+              colour + uint8 too; host-clock and device times of both;
+14. autodiff -- at 1080p: ``ao_loss`` with tunables that require grad
+              bit-equal to the plain path's MSE, 0 launches; ``ao_grads``
+              (wrt_depth) finite, a non-zero strength gradient, card and
+              CPU agreeing at 270x480; examples/calibrate.py's fit (40
+              steps) cutting the loss 10x or more, with ms a step, device
+              ms, idle share and peak memory; "pallas"/"fused" and every
+              wrapper refusing what requires grad;
+15. mesh -- ``(cuda:0, cuda:0)`` (and ``make_mesh()`` with more cards):
+              8 1080p views (10 launches) and 9 (padded to 10) bit-equal
+              to one batch, a 4-pair rig, the temporal fleet of 4
+              sequences x 4 frames at resolve_level 0 and 1 (launches
+              asserted, each sequence bit-equal to
+              render_sequence_temporal), the mesh server answering 4
+              concurrent requests, the current device unchanged
+              throughout; device ms per view beside one batch's.
 
 Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
 time beside it as ``event_ms``, its plain version's event time, computed
 bound and library call: grid_sample's device time for the windowed
-resolve, none for the rest), the nvidia-smi line, and last
+resolve, none for the rest; ``launches_by_path`` its launches on every
+path driven: frame, ULTRA engine, temporal, variants, serving, mesh
+views, fleet at each level, mesh server and autodiff), the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
 nor the JAX package.
@@ -1208,6 +1226,334 @@ def phase_rigs(chk, dev, K, F, card):
     torch.cuda.empty_cache()
 
 
+def phase_autodiff(chk, dev, K, F, card):
+    """14. Autodiff on the card at 1080p (linear-depth spheres on a
+    plane): ``ao_loss`` with tunables that require grad is the plain
+    path's MSE bit for bit and launches no kernel; ``ao_grads`` is finite
+    with a non-zero strength gradient, and agrees with the CPU at
+    270x480; the calibration of examples/calibrate.py (hidden strength 1.8
+    and rejection_falloff 4.0, both fitted from the defaults, lr 0.08, 40
+    steps) cuts the loss at least 10x, with its step time, device time,
+    idle share and peak memory; ``"pallas"``/``"fused"`` and every kernel
+    wrapper refuse what requires grad.  Returns the launch counts of the
+    autodiff calls (all 0)."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models import autodiff as A
+    from tpuao_torch.models.pipeline import render_frame
+    from tpuao_torch.params import AOParams, CameraParams
+
+    h0, w0 = 1080, 1920
+    print(f"autodiff (models.autodiff on the card, {h0}x{w0}) [{card}]:")
+    cam = CameraParams(depth_mode="linear")
+    z_np = F.spheres_on_plane(h0, w0, cam, seed=SEED).astype(np.float32)
+    z = torch.as_tensor(z_np, device=dev)
+    target = render_frame(z, cam, AOParams(strength=1.4))
+
+    def leaves(p):
+        return p.replace(**{n: torch.tensor(float(getattr(p, n)),
+                                            device=dev, requires_grad=True)
+                            for n in A.TRACED_TUNABLES})
+
+    par_t = leaves(AOParams())
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with torch.enable_grad():
+        loss = A.ao_loss(par_t, z, target, cam)
+        d = render_frame(z, cam, par_t, impl="jnp") - target
+        want = torch.mean(d * d)
+    torch.cuda.synchronize()
+    run = K.launch_counts()
+    expect_counts(K, "ao_loss with tunables that require grad", counts())
+    if not torch.equal(loss, want):
+        raise RuntimeError(f"ao_loss {float(loss)} != the plain path's MSE "
+                           f"{float(want)}")
+    print(f"  ao_loss, tensor tunables, impl=auto: "
+          f"{float(loss.detach()):.9e}, bit-equal to "
+          f"render_frame(impl='jnp')'s MSE; launches {run}")
+    loss, gp, gd = A.ao_grads(AOParams(), z, target, cam, wrt_depth=True)
+    g = {n: float(getattr(gp, n)) for n in A.TRACED_TUNABLES}
+    if not (all(np.isfinite(list(g.values())))
+            and bool(torch.isfinite(gd).all())):
+        raise RuntimeError(f"non-finite gradients {g}")
+    if g["strength"] == 0.0:
+        raise RuntimeError("zero strength gradient against a 1.4 target")
+    print(f"  ao_grads wrt_depth: loss {float(loss):.6e}, tunables {g}, "
+          f"|grad depth| max {float(gd.abs().max()):.3e}")
+    # the same call at 270x480 on the card and on the CPU
+    zs = F.spheres_on_plane(270, 480, cam, seed=SEED).astype(np.float32)
+    ts = render_frame(zs, cam, AOParams(strength=1.4), device="cpu").numpy()
+    res = {where: A.ao_grads(AOParams(), zs, ts, cam, wrt_depth=True,
+                             device=where) for where in ("cuda", "cpu")}
+    (lc, gc, dc), (lh, gh, dh) = res["cuda"], res["cpu"]
+    loss_rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    vc = np.array([float(getattr(gc, n)) for n in A.TRACED_TUNABLES])
+    vh = np.array([float(getattr(gh, n)) for n in A.TRACED_TUNABLES])
+    tun_rel = float(np.abs(vc - vh).max() / np.abs(vh).max())
+    dep_rel = float((dc.cpu() - dh).abs().max() / dh.abs().max())
+    print(f"  270x480 card vs CPU: loss rel {loss_rel:.2e}, tunable "
+          f"gradients {tun_rel:.2e} and depth gradient {dep_rel:.2e} of "
+          f"their largest element")
+    if not (loss_rel <= 1e-6 and tun_rel <= 1e-4 and dep_rel <= 1e-4):
+        raise RuntimeError("the card's gradients disagree with the CPU's")
+    # the calibration of examples/calibrate.py
+    hidden = AOParams(strength=1.8, rejection_falloff=4.0)
+    target = render_frame(z, cam, hidden)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fitted, losses = A.fit_tunables(z, target, cam, lr=0.08, steps=40)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 40
+    peak = torch.cuda.max_memory_allocated(dev)
+    first, last = float(losses[0]), float(losses[-1])
+    fit_vals = {n: round(float(getattr(fitted, n)), 4)
+                for n in ("strength", "rejection_falloff")}
+    print(f"  calibration, 40 steps at lr 0.08 from the defaults to hidden "
+          f"strength 1.8, rejection_falloff 4.0: loss {first:.4e} -> "
+          f"{last:.4e} ({first / last:.1f}x), fitted {fit_vals}")
+    if not last * 10 <= first:
+        raise RuntimeError(f"the fit cut the loss only {first / last:.2f}x")
+    device, _, nk = device_profile(
+        lambda: A.fit_tunables(z, target, cam, lr=0.08, steps=2), calls=2)
+    print(f"  fit step: {step_ms:.2f} ms host clock (40 steps, "
+          f"synchronised), {device / 2:.3f} ms device (torch.profiler, "
+          f"{nk / 2:.0f} kernels a step), idle share "
+          f"{1 - device / 2 / step_ms:.3f}; peak memory "
+          f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
+    # what cannot differentiate refuses
+    for impl in ("pallas", "fused"):
+        try:
+            A.ao_grads(AOParams(), z, target, cam, impl=impl)
+        except ValueError:
+            continue
+        raise RuntimeError(f"impl={impl!r} gave gradients")
+    for impl in ("auto", "pallas", "fused"):  # the pipeline swaps nothing
+        try:
+            render_frame(z, cam, par_t, impl=impl)
+        except ValueError:
+            continue
+        raise RuntimeError(f"render_frame(impl={impl!r}) took tunables "
+                           "that require grad")
+    lo = torch.rand(32, 48, device=dev) * 0.4 + 0.3
+    hi = torch.rand(64, 96, device=dev) * 0.4 + 0.3
+    strong = AOParams().replace(
+        strength=torch.tensor(1.5, device=dev, requires_grad=True))
+    calls = {
+        "render_ao_level": lambda p: K.render_ao_level(lo, 1, 96, cam, p),
+        "render_ao_level_normals": lambda p: K.render_ao_level_normals(
+            lo, 1, 96, cam, p.replace(use_normals=True),
+            slopes_ds=(lo * 0, lo * 0)),
+        "render_ao_level_dma": lambda p: K.render_ao_level_dma(lo, 1, 96,
+                                                               cam, p),
+        "blur_upsample_step": lambda p: K.blur_upsample_step(
+            lo, hi[::2, ::2].contiguous(), hi, p, 96),
+        "fused_render_upsample_step": lambda p:
+            K.fused_render_upsample_step(lo, lo, hi, 1, 96, cam, p),
+        "fused_render_upsample_step_zc": lambda p:
+            K.fused_render_upsample_step_zc(lo, lo, hi, 1, 96, cam, p),
+    }
+    for name, call in calls.items():
+        try:
+            call(strong)
+        except ValueError:
+            continue
+        raise RuntimeError(f"{name} took a tunable that requires grad")
+    print("  ao_grads under impl='pallas'/'fused', render_frame under "
+          "'auto'/'pallas'/'fused' with tunables that require grad, and "
+          "all six wrappers with a strength that requires grad: ValueError")
+    del z, target, gd
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_mesh(chk, dev, K, F, card):
+    """15. The mesh on one card, ``(cuda:0, cuda:0)`` (and ``make_mesh()``
+    where there are more cards): 8 1080p views (10 launches, bit-equal to
+    one batch), 9 views padded to 10, a 4-pair rig, the temporal fleet
+    of 4 sequences x 4 frames at resolve_level 0 and 1 (launches, each
+    sequence bit-equal to render_sequence_temporal), the mesh server
+    answering 4 concurrent requests in flushes of 2, the caller's current
+    device unchanged throughout, and device ms per view beside one
+    batch's.  Returns each path's launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpuao_torch.client import AOClient
+    from tpuao_torch.models.pipeline import (render_frame,
+                                             render_sequence_temporal)
+    from tpuao_torch.params import AOParams, CameraParams, TemporalParams
+    from tpuao_torch.parallel.sharding import (make_mesh,
+                                               render_sequences_temporal_sharded,
+                                               render_views_sharded)
+    from tpuao_torch.serving import make_server, warm_server
+    from tpuao_torch.utils.camera import relative_motion
+    from tpuao_torch.utils.timing import cuda_time_ms
+
+    h0, w0 = 1080, 1920
+    meshes = [(dev, dev)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    cam, par = CameraParams(depth_mode="linear"), AOParams()
+    z = torch.as_tensor(np.stack([F.spheres_on_plane(h0, w0, cam, seed=s)
+                                  for s in range(9)]).astype(np.float32),
+                        device=dev)
+    home = torch.cuda.current_device()
+
+    def same_device(label):
+        torch.cuda.synchronize()
+        if torch.cuda.current_device() != home:
+            raise RuntimeError(f"{label} left the current device at "
+                               f"{torch.cuda.current_device()}, not {home}")
+
+    def run(label, fn, want):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = fn()
+        same_device(label)
+        expect_counts(K, label, want)
+        return out, K.launch_counts()
+
+    paths = {}
+    fovs, strengths = [50.0, 60.0, 75.0, 90.0] * 2, [0.7, 1.0, 1.5, 2.5] * 2
+    tan = np.tan(np.radians(fovs) / 2)
+    rig_c = cam.replace(near=np.full(8, cam.near), far=np.full(8, cam.far),
+                        tan_half_fov_h=tan)
+    rig_p = AOParams(strength=np.asarray(strengths),
+                     **{k: np.full(8, getattr(par, k)) for k in (
+                         "noise_filter_tolerance", "blur_tolerance",
+                         "upsample_tolerance", "rejection_falloff")})
+    one8 = render_views_sharded(z[:8], cam, par)
+    one9 = render_views_sharded(z, cam, par)
+    one_rig = render_views_sharded(z[:8], rig_c, rig_p, per_view=True)
+    for mesh in meshes:
+        n = len(mesh)
+        tag = f"mesh {tuple(str(d) for d in mesh)}"
+        print(f"{tag}, 1080p [{card}]:")
+        per = counts(render_ao_level=1, blur_upsample_step=1,
+                     fused_render_upsample_step=3)
+        shards = {k: v * n for k, v in per.items()}
+        out, paths[f"{tag} views"] = run(
+            f"{tag} 8 views", lambda: render_views_sharded(z[:8], cam, par,
+                                                           mesh=mesh),
+            shards)
+        chk.close("", f"  8 views vs one batch, launches "
+                  f"{sum(shards.values())}", out, one8, tol=0.0)
+        out, _ = run(f"{tag} 9 views",
+                     lambda: render_views_sharded(z, cam, par, mesh=mesh),
+                     shards)
+        if tuple(out.shape) != (9, h0, w0):
+            raise RuntimeError(f"9 views gave {tuple(out.shape)}")
+        chk.close("", f"  9 views (padded to {-(-9 // n) * n}) vs one "
+                  f"batch", out, one9, tol=0.0)
+        groups = sum(len(set(list(zip(fovs, strengths))[i * 8 // n:
+                                                         (i + 1) * 8 // n]))
+                     for i in range(n))
+        out, _ = run(f"{tag} rig", lambda: render_views_sharded(
+            z[:8], rig_c, rig_p, per_view=True, mesh=mesh),
+            {k: v * groups for k, v in per.items()})
+        chk.close("", f"  4-pair rig ({groups} shard groups) vs one batch",
+                  out, one_rig, tol=0.0)
+    # the fleet: 4 sequences x 4 frames, each moving its own way
+    t_n, v_n = 4, 4
+    depths, motions = [], []
+    for i in range(v_n):
+        eyes = [(0.03 * (i + 1) * t, 0.01 * i * t, 0.04 * t)
+                for t in range(t_n)]
+        views = []
+        for e in eyes:
+            vm = np.eye(4)
+            vm[:3, 3] = [-c for c in e]
+            views.append(vm)
+        depths.append([F.spheres_on_plane(h0, w0, cam, seed=SEED + i, eye=e)
+                       for e in eyes])
+        motions.append([np.eye(4)] + [relative_motion(views[t - 1], views[t])
+                                      for t in range(1, t_n)])
+    depths = torch.as_tensor(np.asarray(depths, np.float32), device=dev)
+    motions = np.asarray(motions)
+    tp = TemporalParams()
+    frames = v_n * t_n
+    for rl, per_frame in ((0, (1, 1, 3)), (1, (2, 2, 2))):
+        want = counts(render_ao_level=frames * per_frame[0],
+                      blur_upsample_step=frames * per_frame[1],
+                      fused_render_upsample_step=frames * per_frame[2],
+                      windowed_resolve=v_n * (t_n - 1))
+        out, paths[f"fleet l{rl}"] = run(
+            f"fleet resolve_level={rl}",
+            lambda: render_sequences_temporal_sharded(
+                depths, cam, par, tp, motions=motions, mesh=meshes[0],
+                resolve_level=rl), want)
+        err = 0.0
+        for i in range(v_n):
+            err = max(err, chk.close("", "", out[i], render_sequence_temporal(
+                depths[i], cam, par, tp, motions=motions[i],
+                resolve_level=rl), tol=0.0, quiet=True))
+        print(f"  fleet {v_n} sequences x {t_n} frames, resolve_level={rl}, "
+              f"mesh of 2: launches {sum(want.values())} "
+              f"{ {k: v for k, v in want.items() if v} }; each sequence vs "
+              f"render_sequence_temporal max_abs_err={err:.3e}", flush=True)
+    del depths
+    # the mesh server: flushes of 2, one view a mesh entry
+    srv = make_server(0, mesh=meshes[0], device="cuda:0")
+    warm_server(srv, (h0, w0), [])
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = AOClient(f"http://127.0.0.1:{srv.server_address[1]}",
+                          retries=0)
+        client.wait_ready(timeout=30.0, interval=0.1)
+        zs = [z[i].cpu().numpy() for i in range(4)]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        got = client.render_many(zs, workers=4)
+        torch.cuda.synchronize()
+        paths["mesh server"] = K.launch_counts()
+        st = client.stats()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    same_device("the mesh server")
+    for i in range(4):
+        chk.close("", "", torch.as_tensor(got[i], device=dev),
+                  render_frame(z[i], cam, par), tol=0.0, quiet=True)
+    if st["batched"] < 4 or paths["mesh server"]["render_ao_level"] < 1:
+        raise RuntimeError(f"mesh server stats {st} launches "
+                           f"{paths['mesh server']}")
+    print(f"  mesh server (batch 2 over 2 entries): 4 concurrent requests "
+          f"each bit-equal to render_frame; batcher {st['batcher']}; "
+          f"launches {paths['mesh server']}")
+    if torch.cuda.device_count() > 1:
+        with torch.cuda.device(0):
+            K.render_ao_level(z[0, ::2, ::2].contiguous().to("cuda:1"), 1,
+                              w0, cam, par)
+            torch.cuda.synchronize(1)
+            if torch.cuda.current_device() != 0:
+                raise RuntimeError("a launch on cuda:1 moved the thread")
+        print("  a launch on cuda:1 with cuda:0 current: cuda:0 still "
+              "current")
+    else:
+        print("  one card: the launch on cuda:1 with cuda:0 current could "
+              "not run; every call above left the current device as it "
+              "was")
+    # device time per view: the mesh of two beside one batch, in turns
+    fns = {"one batch": lambda: render_views_sharded(z[:8], cam, par),
+           "mesh of 2": lambda: render_views_sharded(z[:8], cam, par,
+                                                     mesh=meshes[0])}
+    for name in ("one batch", "mesh of 2", "mesh of 2", "one batch"):
+        ev = cuda_time_ms(fns[name])
+        device, _, nk = device_profile(fns[name])
+        print(f"  8 views, {name}: {ev / 8:.4f} ms/view by events, "
+              f"{device / 8:.4f} ms/view device ({nk:.0f} kernels a call), "
+              f"idle share {1 - device / ev:.2f} [{card}]", flush=True)
+    del z
+    torch.cuda.empty_cache()
+    return paths
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -1774,7 +2120,7 @@ def main(argv=None) -> int:
     variant_counts, variant_ms = phase_variants(chk, dev, K, P, F, cam, card,
                                                 pyr, c_in)
     ms.update(variant_ms)
-    phase_serving(chk, dev, K, F, cam, card)  # asserts its own counts
+    serving_counts = phase_serving(chk, dev, K, F, cam, card)
 
     # 12: the redesigned kernels beside the parent's, bounds, shares
     phase_parent(dev, K, P, R, F, cam, card, parent)
@@ -1783,6 +2129,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(chk, dev, K, F, card, pathlib.Path(tmp))
     phase_rigs(chk, dev, K, F, card)
+
+    # 14-15: autodiff on the card, and the mesh / fleet / mesh server on
+    # one card, each asserting its own counts
+    autodiff_counts = phase_autodiff(chk, dev, K, F, card)
+    mesh_paths = phase_mesh(chk, dev, K, F, card)
+    paths = {"frame": main_counts, "ultra engine": ultra_counts,
+             "temporal": temporal_counts, "variants": variant_counts,
+             "serving": serving_counts, **mesh_paths,
+             "autodiff": autodiff_counts}
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
@@ -1827,7 +2182,9 @@ def main(argv=None) -> int:
                         "event_ms": ms[key][0], "plain_ms": ms[key][1],
                         "bound_ms": b_ms,
                         "bound_by": b_by,
-                        "library_ms": ms.get(f"{key} library")})
+                        "library_ms": ms.get(f"{key} library"),
+                        "launches_by_path": {p: c[fn] for p, c in
+                                             paths.items()}})
     print(f"library calls: {LIBRARY}")
     for k in kernels:
         if k["launches"] < 1:

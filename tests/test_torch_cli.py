@@ -273,15 +273,37 @@ def test_usage_errors_exit_like_tpuao(case, tmp_path, capsys):
     ["render", "d.pfm", "o.pfm", "--autotune-cache", "x.json"],
     ["render", "d.pfm", "o.pfm", "--server", "http://127.0.0.1:9",
      "--device", "cpu"],
-    ["serve", "--views", "2"],
     ["serve", "8080", "--autotune-cache", "x.json"]])
 def test_what_the_port_rejects_exits_2(argv, capsys):
-    """``--sections``, ``--autotune-cache`` and ``serve --views N > 1``
-    name the ROADMAP item they wait for; ``--device`` is engine state to
-    a remote render.  Nothing is read or rendered before the exit."""
+    """``--sections`` and ``--autotune-cache`` name the ROADMAP item they
+    wait for; ``--device`` is engine state to a remote render.  Nothing is
+    read or rendered before the exit."""
     assert CLI.main(argv) == 2
     err = capsys.readouterr().err
     assert "ROADMAP" in err or "server-side" in err
+
+
+def test_serve_views_reaches_the_server_with_a_mesh(monkeypatch):
+    """``serve --views 2 --device cpu`` goes through to the server's
+    parser, which builds a mesh of 2 CPU entries (and leaves the batch to
+    default to the mesh's size)."""
+    from tpuao_torch import serving
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def fake(port, engine=None, **kw):
+        seen.update(kw, port=port)
+        raise Built
+
+    monkeypatch.setattr(serving, "make_server", fake)
+    with pytest.raises(Built):
+        CLI.main(["serve", "0", "--views", "2", "--device", "cpu"])
+    assert seen["mesh"] == (torch.device("cpu"),) * 2
+    assert seen["device"] == "cpu" and seen["batch_size"] == 0
+    assert seen["port"] == 0
 
 
 def test_render_through_the_port_server(tmp_path):

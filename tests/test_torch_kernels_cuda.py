@@ -592,3 +592,83 @@ def test_fused_zc_tile_edges_and_row_tiles(dev, lh, lw):
         one = K.fused_render_upsample_step_zc(ds[1], c1[1], hi[1], 1, 4 * lw,
                                               CAM, AOParams(), crop_hw=crop)
         close(one, sib[1], 0.0)
+
+
+WRAPPERS_WITH_TUNABLES = ("render_ao_level", "render_ao_level_normals",
+                          "render_ao_level_dma", "blur_upsample_step",
+                          "fused_render_upsample_step",
+                          "fused_render_upsample_step_zc")
+
+
+def _wrapper_call(name, dev, params, grad_input=False):
+    """A call of wrapper ``name`` at 32x48 -> 64x96 with ``params``; with
+    ``grad_input`` its first tensor requires grad."""
+    lo = uniform(dev, (32, 48), 0.3, 0.7, 1)
+    c1 = uniform(dev, (32, 48), 0.5, 1.0, 2)
+    hi = uniform(dev, (64, 96), 0.3, 0.7, 3)
+    if grad_input:
+        lo.requires_grad_()
+    cam = CAM
+    if name == "render_ao_level_normals":
+        g = (torch.zeros_like(c1), torch.zeros_like(c1))
+        return lambda: K.render_ao_level_normals(lo, 1, 96, cam, params,
+                                                 slopes_ds=g)
+    if name in ("render_ao_level", "render_ao_level_dma"):
+        return lambda: getattr(K, name)(lo, 1, 96, cam, params)
+    if name == "blur_upsample_step":
+        return lambda: K.blur_upsample_step(c1 if not grad_input else lo,
+                                            hi[::2, ::2].contiguous(), hi,
+                                            params, 96)
+    return lambda: getattr(K, name)(lo, c1, hi, 1, 96, cam, params)
+
+
+@pytest.mark.parametrize("name", WRAPPERS_WITH_TUNABLES)
+def test_wrappers_refuse_what_requires_grad(dev, name):
+    """The kernels have no backward: a tunable tensor or an input that
+    requires grad raises while autograd is on, and launches nothing;
+    under no_grad, or with tensors that do not require grad, the same
+    call launches as before."""
+    par = AOParams(use_normals=name == "render_ao_level_normals")
+    leaf = torch.tensor(1.5, device=dev, requires_grad=True)
+    K.reset_launch_counts()
+    for call in (_wrapper_call(name, dev, par.replace(strength=leaf)),
+                 _wrapper_call(name, dev, par, grad_input=True)):
+        with pytest.raises(ValueError, match="no backward"):
+            call()
+    assert sum(K.launch_counts().values()) == 0
+    with torch.no_grad():
+        _wrapper_call(name, dev, par.replace(strength=leaf))()
+    _wrapper_call(name, dev, par.replace(strength=leaf.detach()))()
+    assert getattr(K, name).launches == 2
+
+
+def test_windowed_refuses_what_requires_grad(dev):
+    ao = uniform(dev, (16, 24), 0.0, 1.0, 4).requires_grad_()
+    d = uniform(dev, (16, 24), 0.3, 0.7, 5)
+    ii, jj = torch.meshgrid(torch.arange(16.0, device=dev),
+                            torch.arange(24.0, device=dev), indexing="ij")
+    with pytest.raises(ValueError, match="no backward"):
+        K.windowed_resolve(ao, d, ii.contiguous(), jj.contiguous(), 2)
+
+
+def test_launchers_keep_the_callers_device_and_mesh_of_one_card(dev):
+    """A launch leaves the current device as it found it (on another card
+    too, where there is one); a mesh naming this card twice renders each
+    view bit-equal to one batch, 5 launches a shard."""
+    from tpuao_torch.parallel.sharding import render_views_sharded
+
+    z = torch.stack([pyramid(dev, 64, 96, seed=s)[0] for s in range(3)])
+    before = torch.cuda.current_device()
+    one = render_views_sharded(z, CAM)
+    K.reset_launch_counts()
+    two = render_views_sharded(z, CAM, mesh=[dev, dev])
+    assert torch.cuda.current_device() == before
+    assert torch.equal(one, two)
+    assert K.launch_counts() == counts(render_ao_level=2,
+                                       blur_upsample_step=2,
+                                       fused_render_upsample_step=6)
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        with torch.cuda.device(0):
+            K.render_ao_level(z[0].to(other), 1, 96, CAM, AOParams())
+            assert torch.cuda.current_device() == 0

@@ -210,8 +210,8 @@ def test_to_hardware_depth_equal(reversed_z):
 
 
 def test_import_loads_no_jax():
-    """Importing the port in a fresh interpreter loads no jax, flax or
-    tpuao module (the card machine has no jax)."""
+    """Importing the port in a fresh interpreter loads no jax, flax,
+    optax or tpuao module (the card machine has no jax)."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -225,6 +225,7 @@ def test_import_loads_no_jax():
         "import tpuao_torch.utils.batching, tpuao_torch.utils.resilience\n"
         "import tpuao_torch.utils.io, tpuao_torch.parallel.sharding\n"
         "import tpuao_torch.cli, tpuao_torch.utils.debug_dump, runpy\n"
+        "import tpuao_torch.models.autodiff\n"
         "sys.argv = ['tpuao_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('tpuao_torch', run_name='__main__')\n"
@@ -232,7 +233,7 @@ def test_import_loads_no_jax():
         "    assert e.code == 0, e.code\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tpuao'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'tpuao'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

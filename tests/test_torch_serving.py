@@ -332,8 +332,16 @@ def test_warm_server_warms_the_motion_vector_session(monkeypatch):
 
 
 def test_mesh_and_device_arguments():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        S.make_server(0, mesh=object(), device="cpu")
+    # a mesh server decodes onto device, which must be the mesh's first
+    with pytest.raises(ValueError, match="mesh names cpu but device=cuda"):
+        S.make_server(0, mesh=("cpu",) * 2, device="cuda")
+    with pytest.raises(ValueError, match="no device"):
+        S.make_server(0, mesh=(), device="cpu")
+    srv = S.make_server(0, mesh=("cpu",) * 3, device="cpu")
+    try:
+        assert srv.batcher is not None and srv.batcher.batch_size == 3
+    finally:
+        srv.server_close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             S.make_server(0, device="cuda")
@@ -466,3 +474,49 @@ def test_main_parses_like_the_example(capsys):
     with pytest.raises(SystemExit):
         S.main(["--help"])
     assert "--device" in capsys.readouterr().out
+
+
+def test_mesh_server_answers_concurrent_requests():
+    """make_server(mesh=...) flushes through render_views_sharded: 4
+    concurrent requests in flushes of 2 (one view a mesh entry), each
+    answer equal to render_frame, counted as batched."""
+    srv = S.make_server(0, mesh=("cpu",) * 2, device="cpu")
+    assert srv.batcher.batch_size == 2
+    base = start(srv)
+    zs = [scene(40 + s) for s in range(4)]
+    res = {}
+
+    def go(i):
+        res[i] = post(base, "", dumps_pfm(zs[i]))
+
+    try:
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        st = json.loads(post(base, "", None, method="GET",
+                             path="/stats")[1])
+    finally:
+        stop(srv)
+    for i, z in enumerate(zs):
+        assert res[i][0] == 200
+        np.testing.assert_array_equal(
+            loads_pfm(res[i][1]), render_frame(z, CAM, device="cpu").numpy())
+    assert st["batched"] == 4 and st["direct"] == 0
+    b = st["batcher"]
+    assert set(b["rung_flushes"]) <= {"1", "2"}
+    assert b["frames"] + b["padded"] == sum(
+        int(r) * n for r, n in b["rung_flushes"].items())
+
+
+def test_views_flag_builds_a_mesh():
+    """--views N implies --batch N and a mesh of N devices: N CPU entries
+    with --device cpu, the first N cards otherwise."""
+    a = S.build_parser().parse_args(["0", "--views", "2", "--device", "cpu"])
+    assert a.views == 2
+    assert S.mesh_of(a.views, a.device) == (torch.device("cpu"),) * 2
+    assert S.mesh_of(0, "cpu") is None
+    if torch.cuda.device_count() < 3:
+        with pytest.raises(ValueError, match="mesh of 3 devices requested"):
+            S.mesh_of(3, "cuda")

@@ -446,3 +446,68 @@ def test_state_shape_guard_and_inputs():
                                  motions=np.zeros((2, 3, 3)), device="cpu")
     with pytest.raises(ValueError, match=r"\(T, H, W\)"):
         render_sequence_temporal(z, CAM, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the temporal fleet over a mesh: ["cpu"] * 4 against tpuao's 4 devices
+# ---------------------------------------------------------------------------
+
+def _fleet(v, t_n, h=48, w=64):
+    """V dolly sequences, each moving its own way: depths (V, T, H, W) and
+    motions (V, T, 4, 4)."""
+    seqs = [dolly(h, w, t_n, step=(0.03 * (i + 1), 0.01 * i, 0.02), seed=i)
+            for i in range(v)]
+    return (np.stack([d for d, _, _ in seqs]),
+            np.stack([m for _, m, _ in seqs]))
+
+
+@pytest.mark.parametrize("case", ["static", "moving_l1", "uneven_5_over_4"])
+def test_fleet_matches_tpuao(case):
+    from tpuao.parallel import sharding as JSH
+
+    from tpuao_torch.parallel import sharding as SH
+
+    v = 5 if case == "uneven_5_over_4" else 4
+    depths, motions = _fleet(v, 3)
+    if case == "static":
+        motions = None
+    level = 1 if case == "moving_l1" else 0
+    got = SH.render_sequences_temporal_sharded(
+        depths, CAM, AOParams(), TemporalParams(), motions=motions,
+        mesh=["cpu"] * 4, resolve_level=level)
+    want = np.asarray(JSH.render_sequences_temporal_sharded(
+        depths, JCAM, JAOParams(), JTP(),
+        motions=None if motions is None else f32(motions),
+        mesh=JSH.make_mesh(4), resolve_level=level))
+    assert tuple(got.shape) == want.shape == (v, 3, 48, 64)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    for i in range(v):  # each sequence as render_sequence_temporal has it
+        np.testing.assert_array_equal(
+            got[i].numpy(), render_sequence_temporal(
+                depths[i], CAM, AOParams(), TemporalParams(),
+                motions=None if motions is None else motions[i],
+                resolve_level=level, device="cpu").numpy())
+
+
+def test_fleet_checks_its_inputs():
+    from tpuao_torch.parallel import sharding as SH
+
+    depths, motions = _fleet(2, 2, 16, 24)
+    with pytest.raises(ValueError, match=r"\(V, T, H, W\)"):
+        SH.render_sequences_temporal_sharded(depths[0], mesh=["cpu"] * 2)
+    with pytest.raises(ValueError, match=r"motions must be \(2, 2, 4, 4\)"):
+        SH.render_sequences_temporal_sharded(depths, motions=motions[:, :1],
+                                             mesh=["cpu"] * 2)
+    with pytest.raises(ValueError, match="resolve_level"):
+        SH.render_sequences_temporal_sharded(depths, mesh=["cpu"] * 2,
+                                             resolve_level=2)
+    with pytest.raises(ValueError, match="mesh names cpu"):
+        SH.render_sequences_temporal_sharded(depths, mesh=["cpu"] * 2,
+                                             device="cuda")
+    # no mesh: one device, the depths'
+    got = SH.render_sequences_temporal_sharded(depths, CAM, motions=motions,
+                                               device="cpu")
+    for i in range(2):
+        np.testing.assert_array_equal(
+            got[i].numpy(), render_sequence_temporal(
+                depths[i], CAM, motions=motions[i], device="cpu").numpy())

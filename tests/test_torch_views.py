@@ -1,10 +1,12 @@
-"""tpuao_torch.parallel.sharding (one card) against tpuao's, on the CPU.
+"""tpuao_torch.parallel.sharding against tpuao's, on the CPU.
 
 ``render_views`` is the frame pipeline over a leading views axis, which the
 port's kernels take as their grid's batch; it is held against tpuao's
 vmapped ``render_views`` (impl="jnp") to 1e-5, float32 against float32.
 ``render_views_sharded`` and the engine's ``render_views`` are held against
-tpuao's on a 4-device CPU mesh (the conftest's fake devices), 4 views.
+tpuao's on a 4-device CPU mesh (the conftest's fake devices): the port on
+one batch, and on its own mesh of ``["cpu"] * 4`` (4 and 5 views, a rig,
+colour with uint8).
 """
 
 import dataclasses
@@ -77,15 +79,25 @@ def test_pad_leading_matches_tpuao(pad):
 
 
 def test_multi_card_modes_are_not_defined():
-    """One card only: no make_mesh, no temporal fleet, and a mesh of
-    more than one device raises rather than rendering on one card."""
-    for name in ("make_mesh", "render_sequences_temporal_sharded"):
-        assert not hasattr(SH, name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        SH.render_views_sharded(views(2), CameraParams(depth_mode="linear"),
-                                mesh=["cpu", "cpu"], device="cpu")
+    """make_mesh's bounds, as tpuao's: more devices than there are, or
+    none at all, raise; a mesh may name one device several times.  An
+    empty mesh renders nothing."""
+    mesh = SH.make_mesh(3, devices=["cpu"] * 4)
+    assert mesh == (torch.device("cpu"),) * 3
+    assert SH.make_1d_mesh("rows", devices=["cpu"]) == (torch.device("cpu"),)
+    with pytest.raises(ValueError, match="mesh of 5 devices requested, "
+                       "have 4"):
+        SH.make_mesh(5, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="mesh of 9 devices requested"):
+        JSH.make_mesh(9)  # the reference's message, on its 8 devices
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="requested"):
+            SH.make_mesh(2)
+    with pytest.raises(ValueError, match="no device"):
+        SH.make_mesh(devices=[])
     with pytest.raises(ValueError, match="no device"):
         SH.render_views_sharded(views(2), mesh=[], device="cpu")
+    assert SH.VIEW_AXIS == JSH.VIEW_AXIS
 
 
 def test_mesh_and_device_must_agree():
@@ -267,3 +279,73 @@ def test_engine_render_views_matches_tpuao():
     assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
     np.testing.assert_array_equal(got.numpy(),
                                   eng.render(z, normals=n).numpy())
+
+
+# -- the port's own mesh: ["cpu"] * 4 against tpuao's 4-device mesh --------
+
+MESH4 = ["cpu"] * 4
+
+
+@pytest.mark.parametrize("case", ["4 views", "5 views debug", "rig",
+                                  "color_uint8"])
+def test_mesh_matches_tpuao(case, monkeypatch):
+    """Each shard renders its slice as one batch (one coarsest-level
+    render a shard); an uneven count pads to the mesh and crops the
+    primary output, the debug leaves keeping the padded count."""
+    n = 5 if case == "5 views debug" else V
+    z = views(n, VH, VW)
+    cam, par = CameraParams(**LIN), AOParams(strength=1.5)
+    jcam, jpar = JCameraParams(**LIN), JAOParams(strength=1.5)
+    kw = {}
+    if case == "rig":
+        cam, par, jcam, jpar = _rig([50.0, 60.0, 75.0, 90.0],
+                                    [0.5, 1.0, 2.0, 3.0])
+        kw = dict(per_view=True)
+    if case == "color_uint8":
+        rng = np.random.default_rng(5)
+        kw = dict(color=rng.integers(0, 256, (V, VH, VW, 3), dtype=np.uint8),
+                  out_dtype="uint8")
+    if case == "5 views debug":
+        kw = dict(debug_outputs=True)
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[0].shape[0])
+                        or real(*a, **k))
+    got = SH.render_views_sharded(z, cam, par, mesh=MESH4, **kw)
+    want = JSH.render_views_sharded(jnp.asarray(z), jcam, jpar,
+                                    mesh=_jax_mesh(), **kw)
+    if case == "5 views debug":
+        (got, dbg), (want, jdbg) = got, want
+        g, w = _leaves(dbg), _leaves(jdbg)
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert g[k].shape == w[k].shape and g[k].shape[0] == 8, k
+            np.testing.assert_allclose(g[k], w[k], atol=TOL, err_msg=k)
+        assert calls == [2] * 16  # 4 shards x 4 levels, 2 views each
+    else:
+        assert calls == [1] * 4  # one view a shard, one render each
+    want = np.asarray(want)
+    assert got.shape == want.shape == (n, VH, VW) + (
+        (3,) if case == "color_uint8" else ())
+    if case == "color_uint8":
+        assert got.dtype == torch.uint8
+        assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    # each view as the one-batch call renders it, bit for bit
+    one = SH.render_views_sharded(z, cam, par, device="cpu", **kw)
+    one = one[0] if case == "5 views debug" else one
+    np.testing.assert_array_equal(got.numpy(), one.numpy())
+
+
+def test_mesh_device_rule_and_engine():
+    """``device=`` must name the mesh's first device; the engine's
+    render_views takes a mesh of two and equals its one-batch call."""
+    z = views(3, VH, VW)
+    with pytest.raises(ValueError, match="mesh names cpu"):
+        SH.render_views_sharded(z, mesh=["cpu", "cpu"], device="cuda:0")
+    eng = AmbientOcclusionEngine(CameraParams(**LIN), device="cpu")
+    got = eng.render_views(z, mesh=SH.make_mesh(devices=["cpu"] * 2))
+    assert got.shape == (3, VH, VW)
+    np.testing.assert_array_equal(got.numpy(), eng.render_views(z).numpy())

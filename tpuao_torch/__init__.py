@@ -2,8 +2,9 @@
 
 The frame path of ``tpuao`` (depth [+ normals] -> linearise -> pyramid ->
 per-level AO -> blur/upsample chain -> crop [-> composite -> quantise]),
-its engines, its temporal accumulation, one-card multi-view
-(``tpuao_torch.parallel.sharding``), its HTTP serving path
+its engines, its temporal accumulation, multi-view over a mesh of
+devices (``tpuao_torch.parallel.sharding``), autodiff
+(``tpuao_torch.models.autodiff``), its HTTP serving path
 (``tpuao_torch.serving``, ``tpuao_torch.client``) and its command line
 (``python -m tpuao_torch``, ``tpuao_torch.cli``) in PyTorch, with every
 Pallas kernel of the JAX package written by hand in CUDA C++ for

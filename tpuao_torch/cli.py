@@ -14,11 +14,11 @@ linear`` is implied unless overridden), and a ``.png`` output is the AO
 buffer as 8-bit grayscale.
 
 What the JAX package's CLI has and this one rejects (exit 2): ``tune``
-and ``--autotune-cache`` (the TPU's scoped-VMEM budget), ``render
---sections N`` (row sections, a measured TPU rejection) and ``serve
---views N`` for N > 1 (multi-card serving, not ported yet).  With no card
-and no ``--device cpu``, ``render`` exits 1: nothing falls back to the
-CPU unasked.
+and ``--autotune-cache`` (the TPU's scoped-VMEM budget) and ``render
+--sections N`` (row sections, a measured TPU rejection).  ``serve --views
+N`` serves over a mesh of N devices (N CPU entries with ``--device
+cpu``).  With no card and no ``--device cpu``, ``render`` exits 1:
+nothing falls back to the CPU unasked.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ import numpy as np
 from tpuao_torch.params import PARAM_RANGES
 
 _ROADMAP_TPU = "ROADMAP queue 1 item 7"
-_ROADMAP_MULTI = "ROADMAP queue 1 item 5"
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -552,18 +551,12 @@ def _render_sequence_temporal(a, dpaths, streams, camera, params,
 
 
 def _cmd_serve(a) -> int:
-    """``tpuao_torch.serving.main`` with the pass-through arguments; the
-    JAX package's ``--views N`` (a device mesh) and ``--autotune-cache``
-    are rejected."""
+    """``tpuao_torch.serving.main`` with the pass-through arguments
+    (``--views N`` included: a mesh of N devices); the JAX package's
+    ``--autotune-cache`` is rejected."""
     ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--views", type=int, default=0)
     ap.add_argument("--autotune-cache")
     known, rest = ap.parse_known_args(a.args)
-    if known.views > 1:
-        print(f"error: --views {known.views}: serving over a mesh of "
-              f"cards is not ported yet ({_ROADMAP_MULTI})",
-              file=sys.stderr)
-        return 2
     if known.autotune_cache:
         print(f"error: --autotune-cache: the scoped-VMEM budget is a TPU "
               f"compiler knob with no counterpart here ({_ROADMAP_TPU})",

@@ -215,4 +215,28 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, int device,
   return cudaSuccess;
 }
 
+// Makes `device` current for a launcher's scope and gives the caller's
+// current device back when the scope ends, on every return path: a launch
+// for one card of a mesh leaves the calling thread on the card it was on.
+// Where `device` is already current, neither the set nor the restore runs.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    status_ = cudaGetDevice(&prev_);
+    changed_ = status_ == cudaSuccess && prev_ != device;
+    if (changed_) status_ = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (changed_ && status_ == cudaSuccess) cudaSetDevice(prev_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  cudaError_t status() const { return status_; }
+
+ private:
+  int prev_ = 0;
+  bool changed_ = false;
+  cudaError_t status_;
+};
+
 }  // namespace tpuao

@@ -267,8 +267,8 @@ extern "C" int tpuao_fused_render_upsample_step_zc(
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);
   if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   const ChainArgs a{nullptr, c1, ds, hi_d, nullptr, out, lh, lw, h0, w0,
                     k_blur, k_up, nfs, falloff, strength};
   const int vec = vec4_ok(ds, lw);

@@ -152,8 +152,8 @@ cudaError_t launch_render(const float* z, const float* a, const float* b,
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, m2, npairs, pt);
   if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   const int vec = vec4_ok(z, w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 34)

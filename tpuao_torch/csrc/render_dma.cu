@@ -207,8 +207,8 @@ extern "C" int tpuao_render_ao_level_dma(const float* z, float* out,
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);
   if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   const int vec = vec4_ok(z, w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 34)

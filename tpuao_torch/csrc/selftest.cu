@@ -58,11 +58,11 @@ __global__ void check_div_kernel(unsigned long long* bad) {
 extern "C" int tpuao_check_division(unsigned long long* bad, int device,
                                     void* stream) {
   using namespace tpuao;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   check_rcp_kernel<<<4 * kSMs * 8, 256, 0, s>>>(bad);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   check_div_kernel<<<4 * kSMs * 8, 256, 0, s>>>(bad);
   return cudaGetLastError();

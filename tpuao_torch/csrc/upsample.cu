@@ -134,8 +134,8 @@ inline cudaError_t launch_chain_step(const ChainArgs& a, int batch,
   if (batch < 1 || batch > 65535 || a.lh < 1 || a.lw < 1 || a.h0 < 1 ||
       a.w0 < 1 || a.h0 > 2 * a.lh || a.w0 > 2 * a.lw)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pre_min = a.lo_ao2 != nullptr, blend = a.hi_blend != nullptr;
   if (pre_min && blend) return launch_upsample<true, true>(a, batch, device, s);

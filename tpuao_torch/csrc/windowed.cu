@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace tpuao {
 
 __global__ void __launch_bounds__(256)
@@ -91,8 +93,8 @@ extern "C" int tpuao_windowed_resolve(const float* prev_ao,
                                       float* hist_d, int h, int w, int r,
                                       int device, void* stream) {
   if (h < 1 || w < 1 || r < 1 || h > 65535 * 8) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const tpuao::DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return scope.status();
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
   tpuao::windowed_resolve_kernel<<<grid, block, 0,

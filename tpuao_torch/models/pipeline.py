@@ -31,6 +31,13 @@ resolve launch per frame under a moving camera, none under a static one.
 
 On CPU tensors the kernel wrappers run their plain versions, so every value
 gives the plain path there.
+
+Gradients: when autograd is on and the depth, the normals or a tunable
+tensor of ``params`` requires grad, every impl but ``"jnp"`` raises
+``ValueError``: no kernel has a backward, and the JAX package refuses
+gradients through its kernels too.  ``models/autodiff.py`` maps its
+``"auto"`` to ``"jnp"``, as the JAX package's ``"auto"`` is its jnp
+path.
 """
 
 from __future__ import annotations
@@ -112,6 +119,11 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     takes.
     """
     _check_impl(impl)
+    if impl != "jnp" and K.needs_grad((depth, normals), params):
+        raise ValueError(
+            f"impl={impl!r} cannot differentiate: its CUDA kernels have no "
+            "backward; use impl=\"jnp\" (or models.autodiff, whose \"auto\" "
+            "is the plain ops) for gradients")
     h0, w0 = depth.shape[-2:]
     hp, wp = padded_shape(h0, w0)
     depth = _pad_to_64(depth.to(torch.float32), hp, wp)

@@ -30,7 +30,7 @@ import torch
 from tpuao_torch.ops import render as R
 from tpuao_torch.ops import temporal as T
 from tpuao_torch.ops import upsample as U
-from tpuao_torch.params import (AOParams, sphere_radius_coef,
+from tpuao_torch.params import (PARAM_RANGES, AOParams, sphere_radius_coef,
                                 upsample_constants)
 
 # One tap pair as the kernels read it (tpuao::Pair in csrc/common.cuh).
@@ -67,6 +67,29 @@ def _check(name: str, x: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def needs_grad(tensors, params=None) -> bool:
+    """Whether autograd is on and a tensor of ``tensors`` or a tunable of
+    ``params`` (a tensor among the five ``PARAM_RANGES`` fields) requires
+    grad."""
+    if not torch.is_grad_enabled():
+        return False
+    leaves = list(tensors)
+    if params is not None:
+        leaves += [getattr(params, f) for f in PARAM_RANGES]
+    return any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in leaves)
+
+
+def _check_no_grad(name: str, tensors, params=None) -> None:
+    """Refuse what would lose a gradient (``needs_grad``): the kernels
+    have no backward, so their output would carry none."""
+    if needs_grad(tensors, params):
+        raise ValueError(
+            f"{name}: an input or tunable requires grad, and the CUDA "
+            "kernels have no backward; use impl=\"jnp\" (the plain PyTorch "
+            "ops, models.autodiff's \"auto\") for gradients")
 
 
 def _check_kernel_input(name: str, x: torch.Tensor, device: torch.device,
@@ -134,6 +157,7 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
     _check("ds", ds)
     if ds.device.type == "cpu":
         return render_ao_level_plain(ds, level, full_width, camera, params)
+    _check_no_grad("render_ao_level", (ds,), params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
     h, w = ds.shape[-2:]
@@ -227,6 +251,7 @@ def render_ao_level_dma(ds: torch.Tensor, level: int, full_width: int,
     row_tile = _row_tile(row_tile)
     if ds.device.type == "cpu":
         return render_ao_level_plain(ds, level, full_width, camera, params)
+    _check_no_grad("render_ao_level_dma", (ds,), params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
     h, w = ds.shape[-2:]
@@ -300,6 +325,8 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
         return render_ao_level_normals_plain(
             ds, level, full_width, camera, params, normals_ds=normals_ds,
             slopes_ds=slopes_ds)
+    _check_no_grad("render_ao_level_normals",
+                   (ds, normals_ds, *(slopes_ds or ())), params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
     h, w = ds.shape[-2:]
@@ -376,6 +403,7 @@ def blur_upsample_step(lo_ao: torch.Tensor, lo_d: torch.Tensor,
         return blur_upsample_step_plain(lo_ao, lo_d, hi_d, params, full_width,
                                         lo_ao2=lo_ao2, hi_ao_blend=hi_ao_blend,
                                         crop_hw=crop_hw)
+    _check_no_grad("blur_upsample_step", named.values(), params)
     lead = tuple(lo_d.shape[:-2])
     for name, x in named.items():
         if x is not None:
@@ -430,6 +458,7 @@ def _fused_launch(entry: str, dims, ds, c1, hi_d, level: int,
     ``_check_fused``'s, ``extra`` goes between the sizes and the pair table
     (the zero-copy step's R)."""
     lh, lw, h0, w0 = dims
+    _check_no_grad(entry, (ds, c1, hi_d), params)
     lead = tuple(ds.shape[:-2])
     for name, x in (("ds", ds), ("c1", c1), ("hi_d", hi_d)):
         _check_kernel_input(name, x, ds.device, lead)
@@ -528,6 +557,7 @@ def windowed_resolve(prev_ao: torch.Tensor, prev_d: torch.Tensor,
         raise ValueError(f"window radius must be >= 1, got {r}")
     if prev_ao.device.type == "cpu":
         return windowed_resolve_plain(prev_ao, prev_d, ip, jp, r)
+    _check_no_grad("windowed_resolve", named.values())
     for name, x in named.items():
         _check_kernel_input(name, x, prev_ao.device, ())
     h, w = prev_ao.shape

@@ -29,6 +29,56 @@ from tpuao_torch.params import build_pair_table, sphere_radius_coef
 HALO = 16  # max disc offset: 4 slice texels * stride 4
 
 
+class _PowGradsafe(torch.autograd.Function):
+    """``x ** s`` with gradients defined at ``x == 0`` (counterpart of the
+    JAX package's ``custom_jvp`` ``_pow_gradsafe``).
+
+    The forward is ``torch.pow``, bit for bit.  The raw derivatives
+    ``s x^(s-1)`` and ``x^s log(x)`` are inf/nan at x = 0, so a fully
+    occluded texel (vis = 0) would poison every gradient of the frame; the
+    backward evaluates them at ``max(x, 1e-12)``, the clamped-subgradient
+    convention of the differentiable path (``models/autodiff.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        y = torch.pow(x, s)
+        ctx.save_for_backward(x, y, s if isinstance(s, torch.Tensor)
+                              else None)
+        ctx.s = s
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, s_t = ctx.saved_tensors
+        s = ctx.s if s_t is None else s_t
+        xs = torch.clamp(x, min=1e-12)
+        gx = s * torch.pow(xs, s - 1.0) * g if ctx.needs_input_grad[0] \
+            else None
+        gs = None
+        if s_t is not None and ctx.needs_input_grad[1]:
+            gs = (g * y * torch.log(xs)).sum().reshape(s_t.shape)
+        return gx, gs
+
+
+def _pow_gradsafe(x: torch.Tensor, s) -> torch.Tensor:
+    """``x ** s`` (``s`` a float or a 0-d tensor) with the clamped-
+    subgradient backward of ``_PowGradsafe``."""
+    return _PowGradsafe.apply(x, s)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``clamp(x, lo, hi)``; under autograd in the JAX package's form
+    ``min(max(x, lo), hi)`` (``jnp.clip``), whose gradient splits evenly
+    where x equals a bound (``torch.clamp`` passes all of it there).  The
+    render clamps at exact ties all the time (vis == 1 on an open plane),
+    so the two conventions would give different gradients.  The values
+    are the same either way.  The bounds are 0-d CPU tensors, which a
+    binary op on a card takes as scalars: no host-to-device copy."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, torch.tensor(lo)), torch.tensor(hi))
+
+
 def _pair_constants(params) -> list[tuple[int, int, float, float]]:
     """Static per-pair (dx, dy in level texels, thickness, weight) table."""
     offsets, weights = build_pair_table(params.exhaustive)
@@ -174,10 +224,10 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
         else:
             d1 = 1.0 + (zs1 * inv_zc - 1.0) * inv_r
             d2 = 1.0 + (zs2 * inv_zc - 1.0) * inv_r
-        p1 = torch.clamp(falloff * d1, 0.0, 1.0)
-        p2 = torch.clamp(falloff * d2, 0.0, 1.0)
-        pair_vis = (torch.maximum(torch.clamp(d1, 0.0, 1.0), p2)
-                    + torch.maximum(torch.clamp(d2, 0.0, 1.0), p1))
+        p1 = _clip(falloff * d1, 0.0, 1.0)
+        p2 = _clip(falloff * d2, 0.0, 1.0)
+        pair_vis = (torch.maximum(_clip(d1, 0.0, 1.0), p2)
+                    + torch.maximum(_clip(d2, 0.0, 1.0), p1))
         vis = vis + (0.5 * w_pair) * pair_vis
     # pow gives exactly 0 at vis == 0 for every strength in range (> 0)
-    return torch.pow(torch.clamp(vis, 0.0, 1.0), params.strength)
+    return _pow_gradsafe(_clip(vis, 0.0, 1.0), params.strength)

@@ -78,6 +78,8 @@ from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
 from tpuao_torch.params import (PARAM_RANGES, TEMPORAL_PARAM_RANGES,
                                 CameraParams, TemporalParams,
                                 params_to_dict)
+from tpuao_torch.parallel.sharding import (_mesh_devices, make_mesh,
+                                           render_views_sharded)
 from tpuao_torch.utils.batching import MicroBatcher, to_host
 from tpuao_torch.utils.frameio import dumps_pfm, loads_pfm_multi
 from tpuao_torch.utils.resilience import retry_transient
@@ -553,13 +555,17 @@ def make_server(port: int = 0, engine: AmbientOcclusionEngine | None = None,
     a ``torch.device``); on a CUDA device every render launches the
     kernels, and with no card there this raises.  ``batch_size > 0``
     routes default-tunable requests through a
-    ``utils.batching.MicroBatcher``; requests that override tunables or
-    the camera render directly.  ``mesh`` is accepted only as None: the
-    view-sharded fleet is ROADMAP item 9 (multi-GPU)."""
+    ``utils.batching.MicroBatcher``, each flush one
+    ``render_views_sharded`` call; requests that override tunables or
+    the camera render directly, on ``device``.  ``mesh`` (a sequence of
+    devices, ``parallel.sharding.make_mesh``) shards each flush over
+    it -- the [BJ] config-5
+    fleet-serving shape: ``batch_size`` (by default ``len(mesh)``, one
+    view a device) frames a flush.  ``device`` must then name
+    ``mesh[0]``, where decoded frames land and the shards gather."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_server(mesh=...): view-sharded serving across cards is "
-            "not ported yet (ROADMAP item 9, multi-GPU)")
+        mesh = _mesh_devices(mesh, device)
+        batch_size = batch_size or len(mesh)
     device = resolve_device(device)
     srv = AOServer(("127.0.0.1", port), AOHandler)
     srv.device = device
@@ -590,10 +596,11 @@ def make_server(port: int = 0, engine: AmbientOcclusionEngine | None = None,
             params = eng.params
             if normals is not None and not params.use_normals:
                 params = params.replace(use_normals=True)
-            return to_host(render_frame(
-                srv.to_device(d), eng.camera, params,
-                normals=srv.to_device(normals), color=srv.to_device(color),
-                impl=eng.impl))
+            d, normals, color = (srv.to_device(x) for x in (d, normals,
+                                                            color))
+            return to_host(render_views_sharded(
+                d, eng.camera, params, normals=normals, mesh=mesh,
+                impl=eng.impl, color=color))
 
         srv.batcher = MicroBatcher(retry_transient(batched_render),
                                    batch_size=batch_size)
@@ -620,7 +627,22 @@ def build_parser():
                     "temporal,temporal_l1}; every combination of normals "
                     "and color is warmed, 'temporal' adds the ?session= "
                     "paths")
+    ap.add_argument("--views", type=int, default=0,
+                    help="shard each batch flush over an N-device view "
+                    "mesh (fleet serving; implies --batch N): cuda:0.."
+                    "cuda:N-1, or N CPU entries with --device cpu")
     return ap
+
+
+def mesh_of(views: int, device) -> tuple | None:
+    """``--views N``'s mesh: None for N < 1, else the first N cards
+    (``make_mesh(N)``), or N entries of the CPU when ``device`` is the
+    CPU."""
+    if views < 1:
+        return None
+    if torch.device(device).type == "cpu":
+        return make_mesh(devices=[device] * views)
+    return make_mesh(views)
 
 
 def main(argv=None) -> None:
@@ -632,8 +654,9 @@ def main(argv=None) -> None:
     if a.warmup_buffers and not a.warmup:
         ap.error("--warmup-buffers needs --warmup HxW")
     eng = AmbientOcclusionEngine.from_config(a.config) if a.config else None
+    mesh = mesh_of(a.views, a.device)
     srv = make_server(a.port, eng, verbose=True, batch_size=a.batch,
-                      device=a.device)
+                      mesh=mesh, device=a.device)
     if a.warmup:
         h, w = (int(v) for v in a.warmup.split("x"))
         bufs = ([s.strip() for s in a.warmup_buffers.split(",")
