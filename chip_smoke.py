@@ -96,7 +96,22 @@ Phases, one or more lines each:
               asserted, each sequence bit-equal to
               render_sequence_temporal), the mesh server answering 4
               concurrent requests, the current device unchanged
-              throughout; device ms per view beside one batch's.
+              throughout; device ms per view beside one batch's;
+16. spatial and grid -- one frame in row bands on meshes naming cuda:0
+              several times (and ``make_row_mesh()`` with more cards): 8K
+              HIGH on 2 and 4 bands (10 and 20 launches) and 4K ULTRA on 2
+              (normals, uint8 colour, every debug leaf), each bit-equal to
+              the frame program on the halo-padded frame, cropped; the
+              kernels at an 8K band's shapes against their plain
+              versions; a 2x2 grid of 4K views and a rig of 2 value sets
+              (20 and 40 launches), each view bit-equal to its own spatial
+              run; 1080p on 2 bands under impl="auto" and "jnp", each
+              bit-equal to its padded monolithic frame, and the kernels
+              at the 1080p band's shapes (chain steps <= 3.6e-7); the
+              engine's render_spatial; the current device
+              unchanged; event and graph-replay device ms and idle share
+              of the 8K frame on 2 and 4 bands and of the 4K grid beside
+              the monolithic frame, in turns.
 
 Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
@@ -104,7 +119,8 @@ time beside it as ``event_ms``, its plain version's event time, computed
 bound and library call: grid_sample's device time for the windowed
 resolve, none for the rest; ``launches_by_path`` its launches on every
 path driven: frame, ULTRA engine, temporal, variants, serving, mesh
-views, fleet at each level, mesh server and autodiff), the nvidia-smi
+views, fleet at each level, mesh server, autodiff and the spatial and
+grid runs), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
@@ -134,6 +150,8 @@ TOL_SIBLING = 0.0  # the two variants against their sibling kernels: same
                    # arithmetic on the same tap values, so the same bits
 TOL_EXACT = 0.0  # render kernels (all three modes) against their plain
                  # versions: every step rounded alike (csrc/common.cuh)
+TOL_CHAIN_STEP = 3.6e-7  # a chain step against its plain version on the
+                         # same inputs: the worst seen (the ULTRA 1080p chain)
 PARENT_CSRC = "tpuao_torch/_build/parent_csrc"
 
 # The bound: the least time the card could take for a call's work, the
@@ -1554,6 +1572,245 @@ def phase_mesh(chk, dev, K, F, card):
     return paths
 
 
+def phase_spatial(chk, dev, K, F, card):
+    """16. The spatial and grid modes on one card (meshes that name
+    ``cuda:0`` several times, and ``make_row_mesh()`` where there are more
+    cards): an 8K HIGH frame on 2 and 4 row bands and a 4K ULTRA frame on
+    2 (normals, uint8 colour, every debug leaf), each bit-equal to the
+    frame program on the halo-padded frame, cropped; the kernels at the
+    8K band's shapes against their plain versions; a 2x2 grid of 4K views
+    (and a rig of 2 distinct value sets, 2 views a block), each view
+    bit-equal to its own spatial run; a 1080p frame on 2 bands under
+    ``impl="auto"`` and ``"jnp"``, each bit-equal to its padded
+    monolithic frame, and the kernels at its band's shapes; the engine's
+    ``render_spatial``;
+    launch counts and the caller's current device after every call; then
+    event ms, graph-replay device ms and idle share of the 8K frame on 2
+    and 4 bands and of the 4K grid beside the monolithic frame.  Returns
+    each path's launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models.pipeline import (AmbientOcclusionEngine,
+                                             render_frame)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.ops import prepare as P
+    from tpuao_torch.params import AOParams, CameraParams
+    from tpuao_torch.parallel.grid import make_grid_mesh, render_views_spatial
+    from tpuao_torch.parallel.spatial import (halo_extend_rows,
+                                              make_row_mesh,
+                                              pad_rows_aligned,
+                                              render_frame_spatial,
+                                              stencil_halo_rows)
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
+
+    cam, par = CameraParams(depth_mode="linear"), AOParams()
+    halo = stencil_halo_rows(par)
+    home = torch.cuda.current_device()
+    per = counts(render_ao_level=1, blur_upsample_step=1,
+                 fused_render_upsample_step=3)
+    times = lambda c, n: {k: v * n for k, v in c.items()}
+    paths = {}
+
+    def run(label, fn, want):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        if torch.cuda.current_device() != home:
+            raise RuntimeError(f"{label} left the current device at "
+                               f"{torch.cuda.current_device()}, not {home}")
+        expect_counts(K, label, want)
+        paths[label] = K.launch_counts()
+        return out
+
+    def halo_padded(x, n):
+        """``x`` as the spatial mode sees it on n bands: aligned by
+        pad_rows_aligned, then edge-replicated by the halo rows."""
+        x = pad_rows_aligned(x, n, 0)
+        edge = lambda r: r.expand((halo,) + tuple(x.shape[1:]))
+        return torch.cat([edge(x[:1]), x, edge(x[-1:])])
+
+    def crop(leaf, rows):  # a padded-frame leaf to the frame's rows
+        scale = (rows + 2 * halo) // leaf.shape[0]
+        return leaf[halo // scale: (halo + rows) // scale]
+
+    def band_kernels(z, label):
+        """Each kernel of the HIGH path at band 0's shapes on 2 bands (its
+        halo-extended input) against its plain version on the same
+        inputs: the render bit for bit, the chain steps within
+        TOL_CHAIN_STEP."""
+        zp = pad_rows_aligned(z, 2, 0)
+        hb = zp.shape[0] // 2
+        ext = halo_extend_rows([zp[:hb], zp[hb:]], halo, 0)[0]
+        pyr = [lvl.contiguous() for lvl in
+               P.build_pyramid(P.linearize_depth(ext, cam), 4)]
+        eh, ew = ext.shape
+        a4 = K.render_ao_level_plain(pyr[4], 4, ew, cam, par)
+        chk.close("render", f"render l4 {tuple(pyr[4].shape)} ({label} "
+                  f"band, ext {eh})", K.render_ao_level(pyr[4], 4, ew, cam,
+                                                        par), a4,
+                  tol=TOL_EXACT)
+        c = K.blur_upsample_step_plain(a4, pyr[4], pyr[3], par, ew)
+        chk.close("upsample", f"upsample 4->3 ({label} band)",
+                  K.blur_upsample_step(a4, pyr[4], pyr[3], par, ew), c,
+                  tol=TOL_CHAIN_STEP)
+        for l in (3, 2, 1):
+            crop_hw = (eh, ew) if l == 1 else None
+            want = K.fused_render_upsample_step_plain(
+                pyr[l], c, pyr[l - 1], l, ew, cam, par, crop_hw=crop_hw)
+            chk.close("fused", f"fused {l}->{l - 1} {tuple(pyr[l].shape)} "
+                      f"({label} band)", K.fused_render_upsample_step(
+                          pyr[l], c, pyr[l - 1], l, ew, cam, par,
+                          crop_hw=crop_hw), want, tol=TOL_CHAIN_STEP)
+            c = want
+
+    # 8K HIGH on 2 and 4 bands
+    h8, w8 = 4320, 7680
+    z8 = torch.as_tensor(F.spheres_on_plane(h8, w8, cam, seed=SEED),
+                         dtype=torch.float32, device=dev)
+    meshes = [(dev,) * 2, (dev,) * 4]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_row_mesh())
+    print(f"spatial and grid (halo {halo} rows) [{card}]:")
+    refs = {}
+    for mesh in meshes:
+        n = len(mesh)
+        ha = -(-h8 // (64 * n)) * 64 * n
+        label = f"spatial 8K {n} bands" + (
+            "" if len(set(mesh)) == 1 else " (cards)")
+        out = run(label, lambda: render_frame_spatial(z8, cam, par,
+                                                      mesh=mesh),
+                  times(per, n))
+        if ha not in refs:
+            refs[ha] = render_frame(halo_padded(z8, n), cam,
+                                    par)[halo: halo + h8]
+        chk.close("", f"8K HIGH on {n} bands (padded to {ha}, bands of "
+                  f"{ha // n}, ext {ha // n + 2 * halo}), launches "
+                  f"{5 * n}, vs the padded monolithic frame", out,
+                  refs[ha], tol=0.0)
+    band_kernels(z8, "8K")
+    # 4K ULTRA on 2 bands: normals, uint8 colour, every debug leaf
+    ultra = preset("ULTRA")
+    if stencil_halo_rows(ultra) != halo:
+        raise RuntimeError("ULTRA's halo differs from HIGH's")
+    h4, w4 = 2160, 3840
+    z4, n4 = (torch.as_tensor(a.astype(np.float32), device=dev)
+              for a in F.spheres_on_plane(h4, w4, cam, seed=SEED + 1,
+                                          with_normals=True))
+    rgb = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, 256, (h4, w4, 3), dtype=np.uint8), device=dev)
+    out, dbg = run("spatial ULTRA 4K 2 bands", lambda: render_frame_spatial(
+        z4, cam, ultra, mesh=(dev, dev), normals=n4, color=rgb,
+        out_dtype="uint8", debug_outputs=True),
+        counts(render_ao_level_normals=8, blur_upsample_step=8))
+    ref, rdbg = render_frame(halo_padded(z4, 2), cam, ultra,
+                             normals=halo_padded(n4, 2),
+                             color=halo_padded(rgb, 2), out_dtype="uint8",
+                             debug_outputs=True)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (h4, w4, 3):
+        raise RuntimeError(f"ULTRA spatial gave {out.dtype} {out.shape}")
+    chk.close("", "4K ULTRA on 2 bands, uint8 colour, launches 16, vs "
+              "the padded monolithic frame", out, ref[halo: halo + h4],
+              tol=0.0)
+    leaves = 0
+    ha = pad_rows_aligned(z4, 2, 0).shape[0]
+    for key, group in dbg.items():
+        for sub, leaf in (group.items() if isinstance(group, dict)
+                          else ((None, group),)):
+            want = rdbg[key] if sub is None else rdbg[key][sub]
+            chk.close("", "", leaf, crop(want, ha), tol=0.0, quiet=True)
+            leaves += 1
+    print(f"  4K ULTRA debug dict: {leaves} leaves bit-equal to the padded "
+          f"monolithic frame's, cropped", flush=True)
+    del z4, n4, rgb, out, dbg, ref, rdbg
+    # the 4K grid: 2 views x 2 bands, and a rig of 2 value sets
+    grid = make_grid_mesh(2, 2, [dev] * 4)
+    zs = torch.as_tensor(np.stack([F.spheres_on_plane(h4, w4, cam, seed=s)
+                                   for s in range(4)]).astype(np.float32),
+                         device=dev)
+    out = run("grid 4K 2x2", lambda: render_views_spatial(
+        zs[:2], cam, par, mesh=grid), times(per, 4))
+    err = max(chk.close("", "", out[i], render_frame_spatial(
+        zs[i], cam, par, mesh=(dev, dev)), tol=0.0, quiet=True)
+        for i in range(2))
+    print(f"  grid 2x2, 2 4K views: launches 20; each view vs its own "
+          f"spatial run max_abs_err={err:.3e}", flush=True)
+    fovs, strengths = [60.0, 80.0] * 2, [1.0, 2.0] * 2
+    tan = [math.tan(math.radians(f) / 2) for f in fovs]
+    rig_c = cam.replace(near=np.full(4, cam.near), far=np.full(4, cam.far),
+                        tan_half_fov_h=np.asarray(tan))
+    rig_p = AOParams(strength=np.asarray(strengths),
+                     **{k: np.full(4, getattr(par, k)) for k in (
+                         "noise_filter_tolerance", "blur_tolerance",
+                         "upsample_tolerance", "rejection_falloff")})
+    out = run("grid 4K 2x2 rig", lambda: render_views_spatial(
+        zs, rig_c, rig_p, mesh=grid, per_view=True), times(per, 8))
+    err = max(chk.close("", "", out[i], render_frame_spatial(
+        zs[i], cam.replace(tan_half_fov_h=tan[i]),
+        par.replace(strength=strengths[i]), mesh=(dev, dev)), tol=0.0,
+        quiet=True) for i in range(4))
+    print(f"  grid 2x2 rig, 4 4K views of 2 value sets (2 a block): "
+          f"launches 40 (2 batches a device); each view vs its own spatial "
+          f"run max_abs_err={err:.3e}", flush=True)
+    # the kernels against the plain ops on this path, and the engine
+    z1 = torch.as_tensor(F.spheres_on_plane(1080, 1920, cam, seed=SEED + 2),
+                         dtype=torch.float32, device=dev)
+    got = run("spatial 1080p 2 bands", lambda: render_frame_spatial(
+        z1, cam, par, mesh=(dev, dev)), times(per, 2))
+    plain = render_frame_spatial(z1, cam, par, mesh=(dev, dev), impl="jnp")
+    for impl, out in (("auto", got), ("jnp", plain)):
+        chk.close("", f"1080p on 2 bands (1152 rows, bands of 576) {impl} "
+                  f"vs the padded monolithic frame {impl}", out,
+                  render_frame(halo_padded(z1, 2), cam, par,
+                               impl=impl)[halo: halo + 1080], tol=0.0)
+    chk.close("", "1080p on 2 bands auto vs jnp (the frame program's own "
+              "difference: four chained steps)", got, plain)
+    band_kernels(z1, "1080p")
+    eng = AmbientOcclusionEngine(cam, par, device=dev)
+    chk.close("", "engine.render_spatial vs render_frame_spatial",
+              run("engine render_spatial",
+                  lambda: eng.render_spatial(z1, mesh=(dev, dev)),
+                  times(per, 2)), got, tol=0.0)
+    # times, in turns: the monolithic frame beside its bands
+    fns = {"8K monolithic": lambda: render_frame(z8, cam, par),
+           "8K 2 bands": lambda: render_frame_spatial(z8, cam, par,
+                                                      mesh=meshes[0]),
+           "8K 4 bands": lambda: render_frame_spatial(z8, cam, par,
+                                                      mesh=meshes[1]),
+           "4K 2 views monolithic": lambda: render_frame(zs[:2], cam, par),
+           "4K 2 views 2x2 grid": lambda: render_views_spatial(
+               zs[:2], cam, par, mesh=grid)}
+    rows = {"8K monolithic": -(-h8 // 64) * 64,
+            "8K 2 bands": 2 * (-(-h8 // 128) * 64 + 2 * halo),
+            "8K 4 bands": 4 * (-(-h8 // 256) * 64 + 2 * halo),
+            "4K 2 views monolithic": -(-h4 // 64) * 64,
+            "4K 2 views 2x2 grid": 2 * (-(-h4 // 128) * 64 + 2 * halo)}
+    order = ["8K monolithic", "8K 2 bands", "8K 4 bands", "8K 4 bands",
+             "8K 2 bands", "8K monolithic", "4K 2 views monolithic",
+             "4K 2 views 2x2 grid", "4K 2 views 2x2 grid",
+             "4K 2 views monolithic"]
+    dev_ms = {}
+    for name in order:
+        ev, dv = cuda_time_ms(fns[name]), cuda_graph_ms(fns[name])
+        dev_ms.setdefault(name, []).append(dv)
+        print(f"  {name}: event {ev:.4f} ms, device {dv:.4f} ms (graph "
+              f"replay), idle share {1 - dv / ev:.2f} [{card}]", flush=True)
+    for name, base in (("8K 2 bands", "8K monolithic"),
+                       ("8K 4 bands", "8K monolithic"),
+                       ("4K 2 views 2x2 grid", "4K 2 views monolithic")):
+        ratio = min(dev_ms[name]) / min(dev_ms[base])
+        work = rows[name] / rows[base]
+        print(f"  {name} / {base}: device {ratio:.3f}x against rows "
+              f"{rows[name]}/{rows[base]} = {work:.3f}x ({ratio / work:.3f} "
+              f"of the work ratio)", flush=True)
+    del z8, zs, z1, refs
+    torch.cuda.empty_cache()
+    return paths
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -2134,10 +2391,13 @@ def main(argv=None) -> int:
     # one card, each asserting its own counts
     autodiff_counts = phase_autodiff(chk, dev, K, F, card)
     mesh_paths = phase_mesh(chk, dev, K, F, card)
+
+    # 16: the spatial and grid modes on one card, asserting their counts
+    spatial_paths = phase_spatial(chk, dev, K, F, card)
     paths = {"frame": main_counts, "ultra engine": ultra_counts,
              "temporal": temporal_counts, "variants": variant_counts,
              "serving": serving_counts, **mesh_paths,
-             "autodiff": autodiff_counts}
+             "autodiff": autodiff_counts, **spatial_paths}
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera

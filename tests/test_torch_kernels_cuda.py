@@ -672,3 +672,27 @@ def test_launchers_keep_the_callers_device_and_mesh_of_one_card(dev):
         with torch.cuda.device(0):
             K.render_ao_level(z[0].to(other), 1, 96, CAM, AOParams())
             assert torch.cuda.current_device() == 0
+
+
+def test_spatial_1080p_on_two_bands_of_one_card(dev):
+    """A 1080p frame in 2 row bands on ``(cuda:0, cuda:0)`` (padded to
+    1152 rows, bands of 576, each extended by 320 halo rows) is bit-equal
+    to the frame program on the halo-padded frame, cropped: 5 launches a
+    band, the current device unchanged."""
+    from tpuao_torch.parallel.spatial import HALO_ROWS, render_frame_spatial
+
+    z = torch.as_tensor(F.spheres_on_plane(1080, 1920, CAM, seed=3),
+                        dtype=torch.float32, device=dev)
+    before = torch.cuda.current_device()
+    K.reset_launch_counts()
+    got = render_frame_spatial(z, CAM, mesh=[dev, dev])
+    assert torch.cuda.current_device() == before
+    assert K.launch_counts() == counts(render_ao_level=2,
+                                       blur_upsample_step=2,
+                                       fused_render_upsample_step=6)
+    padded = torch.nn.functional.pad(
+        z[None, None], (0, 0, HALO_ROWS, HALO_ROWS + 1152 - 1080),
+        mode="replicate")[0, 0]
+    want = render_frame(padded, CAM)[HALO_ROWS: HALO_ROWS + 1080]
+    assert got.shape == (1080, 1920) and got.device == z.device
+    assert torch.equal(got, want)

@@ -349,3 +349,278 @@ def test_mesh_device_rule_and_engine():
     got = eng.render_views(z, mesh=SH.make_mesh(devices=["cpu"] * 2))
     assert got.shape == (3, VH, VW)
     np.testing.assert_array_equal(got.numpy(), eng.render_views(z).numpy())
+
+
+# -- the spatial and grid modes against tpuao's on its fake CPU devices -----
+#
+# tpuao runs with impl="jnp" (its spatial modes' default) over the first n
+# of its 8 CPU devices; the port with its default impl ("auto": the plain
+# ops on the CPU) over a mesh of ["cpu"] * n.
+
+from tpuao.parallel import grid as JGR  # noqa: E402
+from tpuao.parallel import spatial as JSP  # noqa: E402
+
+from tpuao_torch.parallel import grid as GR  # noqa: E402
+from tpuao_torch.parallel import spatial as SP  # noqa: E402
+
+SH_W = 128  # narrow frames: the band rules are about rows
+
+
+def _frame(h, seed, normals=False):
+    out = F.spheres_on_plane(h, SH_W, CameraParams(**LIN), n_spheres=3,
+                             seed=seed, with_normals=normals)
+    if normals:
+        return out[0].astype(np.float32), out[1].astype(np.float32)
+    return out.astype(np.float32)
+
+
+def _halo_padded(x, halo, axis=0):
+    """``x`` edge-replicated by ``halo`` rows at the top and the bottom."""
+    top = np.repeat(np.take(x, [0], axis=axis), halo, axis=axis)
+    bot = np.repeat(np.take(x, [-1], axis=axis), halo, axis=axis)
+    return np.concatenate([top, x, bot], axis=axis)
+
+
+def _assert_leaves(dbg, jdbg):
+    g, w = _leaves(dbg), _leaves(jdbg)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        assert g[k].shape == w[k].shape, (k, g[k].shape, w[k].shape)
+        np.testing.assert_allclose(g[k], w[k], atol=TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("blur", [True, False])
+def test_stencil_halo_rows_matches_tpuao(d, blur):
+    got = SP.stencil_halo_rows(AOParams(hierarchy_depth=d, enable_blur=blur))
+    assert got == JSP.stencil_halo_rows(
+        JAOParams(hierarchy_depth=d, enable_blur=blur))
+    assert got % 64 == 0
+    assert SP.HALO_ROWS == JSP.HALO_ROWS == 320
+    assert SP.stencil_halo_rows(AOParams()) == SP.HALO_ROWS
+    assert SP.ROW_AXIS == JSP.ROW_AXIS
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_edge_pad_rows_matches_tpuao(dtype, axis):
+    rng = np.random.default_rng(3)
+    x = (rng.uniform(0, 255, (3, 100, 5)) if axis else
+         rng.uniform(0, 255, (100, 5, 3))).astype(dtype)
+    for target in (100, 130):
+        got = SP.edge_pad_rows(torch.as_tensor(x), target, axis)
+        want = np.asarray(JSP.edge_pad_rows(jnp.asarray(x), target, axis))
+        assert got.dtype == torch.as_tensor(x).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    for n in (1, 2, 4):
+        got = SP.pad_rows_aligned(torch.as_tensor(x), n, axis)
+        want = np.asarray(JSP.pad_rows_aligned(jnp.asarray(x), n, axis))
+        assert got.shape[axis] == -(-100 // (64 * n)) * 64 * n
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_halo_extend_rows_slices_the_edge_padded_frame(axis):
+    """4 bands of 8 rows with a halo of 3: band i extended is rows
+    [8 i, 8 i + 14) of the frame edge-replicated by 3 rows, whatever the
+    leading view axis."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (2, 32, 5) if axis else (32, 5, 3))
+    x = x.astype(np.float32)
+    bands = [torch.as_tensor(b) for b in np.split(x, 4, axis=axis)]
+    ext = SP.halo_extend_rows(bands, 3, axis)
+    padded = _halo_padded(x, 3, axis)
+    assert len(ext) == 4
+    for i, e in enumerate(ext):
+        np.testing.assert_array_equal(
+            e.numpy(), np.take(padded, range(8 * i, 8 * i + 14), axis=axis))
+    one = SP.halo_extend_rows([torch.as_tensor(x)], 3, axis)
+    np.testing.assert_array_equal(one[0].numpy(), padded)
+
+
+def test_crop_debug_rows_matches_tpuao():
+    rng = np.random.default_rng(5)
+    halo, band = 64, 128  # ext 256: level 0 and level 2 leaves
+    dbg = {"linear_z": rng.uniform(size=(256, 16)).astype(np.float32),
+           "ao_levels": {2: rng.uniform(size=(64, 4)).astype(np.float32)},
+           "views": rng.uniform(size=(3, 128, 8)).astype(np.float32)}
+    got = SP.crop_debug_rows({k: (torch.as_tensor(v) if k != "ao_levels"
+                                  else {2: torch.as_tensor(v[2])})
+                              for k, v in dbg.items()}, halo, band)
+    want = JSP.crop_debug_rows(
+        {"linear_z": jnp.asarray(dbg["linear_z"]),
+         "ao_levels": {2: jnp.asarray(dbg["ao_levels"][2])},
+         "views": jnp.asarray(dbg["views"])}, halo, band)
+    assert got["views"].shape == (3, 64, 8)
+    _assert_leaves(got, want)
+
+
+@pytest.mark.parametrize("case", ["depth", "normals colour debug",
+                                  "channel-first auto_pad"])
+def test_render_frame_spatial_matches_tpuao(case, monkeypatch):
+    """One frame on 2 bands: tpuao's to 1e-5 (uint8 codes within 1), and
+    bit-equal to the port's own frame program on the halo-padded frame,
+    cropped -- each band one render of its coarsest level."""
+    cam, jcam = CameraParams(**LIN), JCameraParams(**LIN)
+    kw, nrm = {}, None
+    if case == "depth":  # d = 4, halo 320, bands of 384
+        h, par = 768, dict()
+        z = _frame(h, 1)
+    else:  # d = 2 with normals, halo 128
+        h, par = (256, dict(hierarchy_depth=2, use_normals=True))
+        if case == "channel-first auto_pad":
+            h = 200  # padded to 256
+        z, nrm = _frame(h, 2, normals=True)
+        if case == "channel-first auto_pad":
+            nrm = np.ascontiguousarray(np.moveaxis(nrm, -1, 0))
+        else:
+            rng = np.random.default_rng(6)
+            kw = dict(color=rng.integers(0, 256, (h, SH_W, 3),
+                                         dtype=np.uint8),
+                      out_dtype="uint8", debug_outputs=True)
+    halo = SP.stencil_halo_rows(AOParams(**par))
+    assert halo == (320 if case == "depth" else 128)
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[0].shape)
+                        or real(*a, **k))
+    got = SP.render_frame_spatial(z, cam, AOParams(**par), mesh=["cpu"] * 2,
+                                  normals=nrm, **kw)
+    if case == "depth":
+        assert len(calls) == 2  # the coarsest level, once a band
+    want = JSP.render_frame_spatial(
+        jnp.asarray(z), jcam, JAOParams(**par), mesh=JSP.make_row_mesh(2),
+        impl="jnp", normals=None if nrm is None else jnp.asarray(nrm), **kw)
+    if kw.get("debug_outputs"):
+        (got, dbg), (want, jdbg) = got, want
+        _assert_leaves(dbg, jdbg)
+        assert dbg["linear_z"].shape == (h, SH_W)
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.numpy().dtype == want.dtype
+    if "color" in kw:
+        assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    # the port's frame program on the halo-padded (and aligned) frame
+    hp = -(-h // 128) * 128
+    zp = _halo_padded(np.concatenate([z, np.repeat(z[-1:], hp - h, 0)]),
+                      halo)
+    npad = None
+    if nrm is not None:
+        ncl = nrm if nrm.shape[-1] == 3 else np.moveaxis(nrm, 0, -1)
+        npad = _halo_padded(np.concatenate(
+            [ncl, np.repeat(ncl[-1:], hp - h, 0)]), halo)
+    ref = render_frame(zp, cam, AOParams(**par), normals=npad,
+                       device="cpu")[halo: halo + h]
+    if "color" in kw:
+        ref = render_frame(zp, cam, AOParams(**par), normals=npad,
+                           color=_halo_padded(kw["color"], halo),
+                           out_dtype="uint8", device="cpu")[halo: halo + h]
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def test_spatial_constraints_raise():
+    z = _frame(768, 1)
+    with pytest.raises(ValueError, match="band height 192 < halo 320"):
+        SP.render_frame_spatial(z, mesh=["cpu"] * 4)
+    with pytest.raises(ValueError, match=r"H=700 must be a multiple of "
+                       r"64\*mesh \(128\)"):
+        SP.render_frame_spatial(z[:700], mesh=["cpu"] * 2, auto_pad=False)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        SP.render_frame_spatial(z, mesh=["cpu"] * 2, halo_rows=100)
+    with pytest.raises(ValueError, match="one .H, W. frame"):
+        SP.render_frame_spatial(z[None], mesh=["cpu"])
+    with pytest.raises(ValueError, match="views 3 not divisible by view "
+                       "mesh 2"):
+        GR.render_views_spatial(np.stack([z] * 3),
+                                mesh=GR.make_grid_mesh(2, 1, ["cpu"] * 2))
+    with pytest.raises(ValueError, match="band height 256 < halo 320: use "
+                       "fewer row bands"):
+        GR.render_views_spatial(np.stack([z] * 2),
+                                mesh=GR.make_grid_mesh(1, 3, ["cpu"] * 3))
+    with pytest.raises(ValueError, match="grid 2x4 needs 8 devices, have 4"):
+        GR.make_grid_mesh(2, 4, ["cpu"] * 4)
+    with pytest.raises(ValueError, match="grid 3x3 needs 9 devices, have 8"):
+        JGR.make_grid_mesh(3, 3)  # the reference's message
+    with pytest.raises(ValueError, match="mesh names cpu"):
+        SP.render_frame_spatial(z, mesh=["cpu"] * 2, device="cuda:0")
+    if not torch.cuda.is_available():  # no default mesh without a card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SP.render_frame_spatial(z)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GR.render_views_spatial(np.stack([z] * 2))
+    # a mesh of one still edge-replicates the halo: device= alone is one
+    np.testing.assert_array_equal(
+        SP.render_frame_spatial(z, device="cpu").numpy(),
+        SP.render_frame_spatial(z, mesh=["cpu"] * 2).numpy())
+    assert SP.make_row_mesh(devices=["cpu"] * 2) == (torch.device("cpu"),) * 2
+
+
+@pytest.mark.parametrize("case", ["2 views", "4 views", "rig", "debug"])
+def test_render_views_spatial_matches_tpuao(case, monkeypatch):
+    """2 views x 2 bands (halo 128, d = 2): tpuao's grid to 1e-5, and each
+    view bit-equal to the port's own spatial run; a device block renders
+    its views as one batch (one batch a distinct rig row)."""
+    n = 2 if case == "2 views" else 4
+    h = 200  # padded to 256: bands of 128
+    cam, jcam = CameraParams(**LIN), JCameraParams(**LIN)
+    par, jpar = AOParams(hierarchy_depth=2), JAOParams(hierarchy_depth=2)
+    z = np.stack([_frame(h, s) for s in range(n)])
+    kw = {}
+    if case == "rig":  # 2 distinct value sets, one a view of each block
+        cam, par, jcam, jpar = _rig([60.0, 80.0, 60.0, 80.0],
+                                    [1.0, 2.0, 1.0, 2.0])
+        par, jpar = (p.replace(hierarchy_depth=2) for p in (par, jpar))
+        kw = dict(per_view=True)
+    if case == "debug":
+        kw = dict(debug_outputs=True)
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **k: calls.append(a[0].shape[0])
+                        or real(*a, **k))
+    mesh = GR.make_grid_mesh(2, 2, ["cpu"] * 4)
+    got = GR.render_views_spatial(z, cam, par, mesh=mesh, **kw)
+    k = n // 2  # views a block
+    if case == "rig":
+        assert calls == [1] * 8  # 4 blocks x 2 distinct rows
+    elif case != "debug":
+        assert calls == [k] * 4  # one batch a device block
+    want = JGR.render_views_spatial(jnp.asarray(z), jcam, jpar,
+                                    mesh=JGR.make_grid_mesh(2, 2),
+                                    impl="jnp", **kw)
+    if case == "debug":
+        (got, dbg), (want, jdbg) = got, want
+        _assert_leaves(dbg, jdbg)
+        assert dbg["linear_z"].shape == (n, 256, SH_W)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (n, h, SH_W)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+    for i in range(n):  # each view as its own spatial run, bit for bit
+        c, p = cam, par
+        if case == "rig":
+            c = cam.replace(**{f: float(getattr(cam, f)[i])
+                               for f in SH.RIG_CAMERA_FIELDS})
+            p = par.replace(**{f: float(getattr(par, f)[i])
+                               for f in SH.RIG_PARAM_FIELDS})
+        np.testing.assert_array_equal(
+            got[i].numpy(), SP.render_frame_spatial(
+                z[i], c, p, mesh=["cpu"] * 2).numpy())
+
+
+def test_engine_render_spatial_matches_tpuao():
+    z = _frame(768, 3)
+    eng = AmbientOcclusionEngine(CameraParams(**LIN), out_dtype="uint8",
+                                 device="cpu")
+    jeng = JPL.AmbientOcclusionEngine(JCameraParams(**LIN),
+                                      out_dtype="uint8", impl="jnp")
+    got = eng.render_spatial(z, mesh=SP.make_row_mesh(devices=["cpu"] * 2))
+    want = np.asarray(jeng.render_spatial(jnp.asarray(z),
+                                          mesh=JSP.make_row_mesh(2)))
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(
+        got.numpy(), SP.render_frame_spatial(
+            z, CameraParams(**LIN), mesh=["cpu"] * 2,
+            out_dtype="uint8").numpy())

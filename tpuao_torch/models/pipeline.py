@@ -527,6 +527,20 @@ class AmbientOcclusionEngine:
             impl=self.impl, color=color, out_dtype=self.out_dtype,
             debug_outputs=debug_outputs, device=self.device)
 
+    def render_spatial(self, depth, normals=None, color=None, mesh=None,
+                       halo_rows: int | None = None,
+                       debug_outputs: bool = False):
+        """One large frame in row bands across a mesh through the engine:
+        ``render_frame_spatial`` with the engine's camera, params, impl,
+        ``out_dtype`` and device."""
+        from tpuao_torch.parallel.spatial import render_frame_spatial
+
+        return render_frame_spatial(
+            depth, self.camera, self._params, mesh=mesh, impl=self.impl,
+            halo_rows=halo_rows, normals=normals, color=color,
+            out_dtype=self.out_dtype, debug_outputs=debug_outputs,
+            device=self.device)
+
     __call__ = render
 
 

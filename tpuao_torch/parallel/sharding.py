@@ -160,15 +160,16 @@ def _shard(x, sl: slice, dev):
     return _to(x[sl], dev)
 
 
-def _gather(parts: list, dev):
-    """The shards' results concatenated on ``dev`` along the view axis,
-    leaf by leaf through tuples and dicts."""
+def _gather(parts: list, dev, dim: int = 0):
+    """The shards' results concatenated on ``dev`` along ``dim`` (the view
+    axis by default; the row axis for the spatial modes' bands), leaf by
+    leaf through tuples and dicts."""
     first = parts[0]
     if isinstance(first, dict):
-        return {k: _gather([p[k] for p in parts], dev) for k in first}
+        return {k: _gather([p[k] for p in parts], dev, dim) for k in first}
     if isinstance(first, tuple):
-        return tuple(_gather(list(z), dev) for z in zip(*parts))
-    return torch.cat([_to(p, dev) for p in parts])
+        return tuple(_gather(list(z), dev, dim) for z in zip(*parts))
+    return torch.cat([_to(p, dev) for p in parts], dim=dim)
 
 
 def _rig(camera, params, n: int) -> np.ndarray:
