@@ -111,9 +111,25 @@ Phases, one or more lines each:
               engine's render_spatial; the current device
               unchanged; event and graph-replay device ms and idle share
               of the 8K frame on 2 and 4 bands and of the 4K grid beside
-              the monolithic frame, in turns.
+              the monolithic frame, in turns;
+17. golden -- each path against the port's float64 golden
+              (``tpuao_torch.golden``) computed on the card from the same
+              inputs, full frame (max_abs_err <= 1e-4): HIGH 1080p under
+              auto and pallas, ULTRA 1080p with normals, VERY_LOW, LOW and
+              MEDIUM, single_scale_ao at 720p, HIGH and ULTRA 4K, HIGH 8K
+              (with the golden's peak memory), TemporalAOEngine on a 1080p
+              dolly at resolve_level 0 and 1 and with motion vectors (each
+              step against the golden step from the engine's history, the
+              texels within BAND_EPS of a validity boundary masked; the
+              whole sequence against the sequence oracle printed), and the
+              DMA and zero-copy entry points at level 1 of 1080p; the
+              golden on the card against the CPU's at 270x480 (<= 1e-12);
+              bench.py's three sampled crops at 4K and 8K against the
+              full-frame golden.
 
-Then a JSON line ``{"kernels": [...]}`` (each kernel's launches on its
+Then a JSON line ``{"golden": [...], "crops": [...]}`` (each path's shape,
+max_abs_err and golden seconds), a JSON line ``{"kernels": [...]}`` (each
+kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
 time beside it as ``event_ms``, its plain version's event time, computed
 bound and library call: grid_sample's device time for the windowed
@@ -152,6 +168,14 @@ TOL_EXACT = 0.0  # render kernels (all three modes) against their plain
                  # versions: every step rounded alike (csrc/common.cuh)
 TOL_CHAIN_STEP = 3.6e-7  # a chain step against its plain version on the
                          # same inputs: the worst seen (the ULTRA 1080p chain)
+TOL_GOLDEN = 1e-4  # a path (float32) against the float64 golden: the CPU
+                   # tests' bound against the golden ([BJ] budget 1e-3)
+TOL_GOLDEN_DEVICES = 1e-12  # the golden on the card against the CPU's
+BAND_EPS = 1e-3  # texels: a temporal texel this close to a validity
+                 # boundary is masked (tests/test_temporal.py's rule)
+GOLDEN_SIZES = {"check": (270, 480), "720p": (720, 1280),
+                "1080p": (1080, 1920), "4K": (2160, 3840),
+                "8K": (4320, 7680)}  # phase 17's frames
 PARENT_CSRC = "tpuao_torch/_build/parent_csrc"
 
 # The bound: the least time the card could take for a call's work, the
@@ -1811,6 +1835,324 @@ def phase_spatial(chk, dev, K, F, card):
     return paths
 
 
+# Crops of the >= 4K golden check as bench.py cuts them (crop_origins,
+# golden_err_sampled): 64-aligned 256 x 256 interiors with 320 texels of
+# margin on every side, evaluated with the frame's padded width
+CROP_S, CROP_M = 256, 320
+
+
+def crop_origins(h, w, k=3):
+    """k deterministic 64-aligned interior crop origins with CROP_M margin
+    (bench.py's rule)."""
+    lo_r = (CROP_M + 63) // 64 * 64
+    hi_r = (h - CROP_M - CROP_S) // 64 * 64
+    lo_c = (CROP_M + 63) // 64 * 64
+    hi_c = (w - CROP_M - CROP_S) // 64 * 64
+    outs = []
+    for i in range(k):
+        f = (i + 1) / (k + 1)
+        r = (lo_r + int(f * (hi_r - lo_r))) // 64 * 64
+        c = (lo_c + int((1 - f) * (hi_c - lo_c))) // 64 * 64
+        outs.append((r, c))
+    return outs
+
+
+def validity_band(ip, jp, ii, jj, h0, w0, r):
+    """Texels whose previous-frame coordinate (full-res units) lies within
+    BAND_EPS texels of a validity boundary of the resolve: the frame
+    rectangle's edges and, with ``r``, the displacement window's.  These
+    are the spec's only discontinuities; float32 rounding of the
+    coordinate may put such a texel on either side (the boundary masking
+    of tests/test_temporal.py)."""
+    band = ((ip + 0.5).abs() < BAND_EPS) | ((ip - (h0 - 0.5)).abs()
+                                            < BAND_EPS)
+    band |= ((jp + 0.5).abs() < BAND_EPS) | ((jp - (w0 - 0.5)).abs()
+                                             < BAND_EPS)
+    if r is not None:
+        band |= ((ip - ii).abs() - r).abs() < BAND_EPS
+        band |= ((jp - jj).abs() - r).abs() < BAND_EPS
+    return band
+
+
+def phase_golden(dev, K, F, card):
+    """17. Each path on the card against the port's float64 golden
+    (``tpuao_torch.golden``) computed on the card from the same inputs,
+    full frame at every size; returns the records of the ``golden`` line.
+    """
+    import numpy as np
+    import torch
+
+    from tpuao_torch.golden import reference as G
+    from tpuao_torch.golden import temporal as GT
+    from tpuao_torch.models.pipeline import (TemporalAOEngine, render_frame,
+                                             single_scale_ao)
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.ops import prepare as P
+    from tpuao_torch.params import (AOParams, CameraParams, TemporalParams,
+                                    padded_shape)
+
+    print(f"golden (tpuao_torch.golden, float64 on the card) [{card}]:")
+    cam, cam_hw = CameraParams(depth_mode="linear"), CameraParams()
+    records = []
+
+    def golden(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def hold(path, got, want, secs, mask=None, **extra):
+        """max |got - want| over the texels (outside ``mask``), in float64;
+        fails above TOL_GOLDEN."""
+        if tuple(got.shape) != tuple(want.shape):
+            raise RuntimeError(f"golden {path}: shape {tuple(got.shape)} "
+                               f"!= {tuple(want.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"golden {path}: non-finite values")
+        diff = (got.double() - want).abs()
+        if mask is not None:
+            diff = diff[~mask]
+        err = float(diff.max())
+        rec = {"path": path, "shape": list(got.shape), "max_abs_err": err,
+               "golden_s": secs, "full_err": True, **extra}
+        records.append(rec)
+        print(f"  {path} {tuple(got.shape)}: max_abs_err={err:.3e}, golden "
+              f"{secs:.3f} s" + "".join(f", {k} {v}" for k, v in
+                                        extra.items()), flush=True)
+        if not err <= TOL_GOLDEN:
+            raise RuntimeError(f"golden {path}: max_abs_err {err} > "
+                               f"{TOL_GOLDEN}")
+        return err
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in K.launch_counts().items() if v}
+
+    def frame(h, w, c, normals=False):
+        """A sphere scene as the card's float32 input (hardware depth
+        under ``cam_hw``), with raw (H, W, 3) normals."""
+        z, n = F.spheres_on_plane(h, w, c, seed=SEED, with_normals=True)
+        if c.depth_mode == "hardware":
+            z = F.to_hardware_depth(z, c)
+        d = torch.as_tensor(z.astype(np.float32), device=dev)
+        return (d, torch.as_tensor(n.astype(np.float32), device=dev)
+                if normals else None)
+
+    S = GOLDEN_SIZES
+    # the card's float64 against the CPU's
+    d, n = frame(*S["check"], cam_hw, normals=True)
+    for name in ("HIGH", "ULTRA"):
+        par = preset(name)
+        g, secs = golden(lambda: G.render_frame_golden(d, cam_hw, par, n))
+        c = G.render_frame_golden(d.cpu(), cam_hw, par, n.cpu())
+        diff = float((g.cpu() - c).abs().max())
+        records.append({"path": f"golden cuda vs cpu, {name}",
+                        "shape": list(g.shape), "max_abs_err": diff,
+                        "golden_s": secs, "full_err": True})
+        print(f"  golden on cuda vs cpu, {name} {S['check']}: max |diff| "
+              f"{diff:.3e}", flush=True)
+        if not diff <= TOL_GOLDEN_DEVICES:
+            raise RuntimeError(f"golden cuda vs cpu {name}: {diff}")
+
+    # the frame paths at 1080p: HIGH under auto and pallas ([BJ] config
+    # 2), ULTRA with normals ([BJ] config 3), and the quality ladder
+    h0, w0 = S["1080p"]
+    d, _ = frame(h0, w0, cam_hw)
+    for name in ("VERY_LOW", "LOW", "MEDIUM", "HIGH"):
+        par = preset(name)
+        want, secs = golden(lambda: G.render_frame_golden(d, cam_hw, par))
+        for impl in ("auto", "pallas") if name == "HIGH" else ("auto",):
+            got, run = launched(lambda: render_frame(d, cam_hw, par,
+                                                     impl=impl))
+            hold(f"{name} 1080p hardware depth impl={impl}", got, want,
+                 secs, launches=run)
+    du, nu = frame(h0, w0, cam, normals=True)
+    par = preset("ULTRA")
+    want, secs = golden(lambda: G.render_frame_golden(du, cam, par, nu))
+    got, run = launched(lambda: render_frame(du, cam, par, normals=nu))
+    hold("ULTRA 1080p normals impl=auto", got, want, secs, launches=run)
+
+    # [BJ] config 1: single scale at 720p against the golden's level-1
+    # render of the pick-one half-res plane (bench.py's config 1)
+    h, w = S["720p"]
+    d7, _ = frame(h, w, cam)
+    p1 = AOParams(hierarchy_depth=1, enable_blur=False)
+    dbg, secs = golden(lambda: G.render_frame_golden(
+        d7, cam, p1, return_debug=True)[1])
+    got, run = launched(lambda: single_scale_ao(d7, cam, p1))
+    hold("single_scale_ao 720p", got,
+         dbg["ao_levels"][1][:-(-h // 2), :-(-w // 2)], secs, launches=run)
+
+    # 4K and 8K, full frame; the sampled crops of the >= 4K golden check
+    # against the same crops of the full-frame golden
+    crops = []
+    for label, name, c in (("4K", "HIGH", cam_hw), ("4K", "ULTRA", cam),
+                           ("8K", "HIGH", cam_hw)):
+        (h, w), par = S[label], preset(name)
+        d, n = frame(h, w, c, normals=par.use_normals)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want, secs = golden(lambda: G.render_frame_golden(d, c, par, n))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        got, run = launched(lambda: render_frame(d, c, par, normals=n))
+        hold(f"{name} {label} impl=auto", got, want, secs, launches=run,
+             golden_peak_gib=round(peak, 3))
+        del got
+        if name == "HIGH":
+            wp = padded_shape(h, w)[1]
+            worst, t_crops = 0.0, 0.0
+            for r0, c0 in crop_origins(h, w):
+                zc = d[r0 - CROP_M:r0 + CROP_S + CROP_M,
+                       c0 - CROP_M:c0 + CROP_S + CROP_M]
+                g, s = golden(lambda: G.render_frame_golden(
+                    zc, c, par, full_width=wp))
+                t_crops += s
+                inner = g[CROP_M:CROP_M + CROP_S, CROP_M:CROP_M + CROP_S]
+                worst = max(worst, float((inner - want[
+                    r0:r0 + CROP_S, c0:c0 + CROP_S]).abs().max()))
+            crops.append({"path": f"{name} {label}", "crops": 3,
+                          "origins": crop_origins(h, w),
+                          "max_diff_vs_full_frame": worst,
+                          "golden_s": t_crops})
+            print(f"  {name} {label} sampled crops ({CROP_S} + {CROP_M} "
+                  f"margin, 3 at {crop_origins(h, w)}) vs the full-frame "
+                  f"golden: max |diff| {worst:.3e}, {t_crops:.3f} s",
+                  flush=True)
+        del d, n, want
+        torch.cuda.empty_cache()
+
+    # the temporal path: TemporalAOEngine on a 1080p hardware-depth dolly
+    # (HIGH, 6 frames) at resolve_level 0 and 1, and driven by per-pixel
+    # motion vectors at level 0.  Each frame is held against the golden
+    # step from the engine's own history (the validity band masked, see
+    # validity_band); the whole sequence against the sequence oracle is
+    # printed beside it, band and all
+    t_n = 6
+    frames, views = dolly_frames(F, cam_hw, h0, w0, t_n)
+    depths = torch.stack([torch.as_tensor(F.to_hardware_depth(z, cam_hw)
+                                          .astype(np.float32), device=dev)
+                          for z, _ in frames])
+    motions = [None] + [views[t - 1] @ np.linalg.inv(views[t])
+                        for t in range(1, t_n)]
+    mv = torch.zeros(h0, w0, 2, device=dev)
+    mv[..., 1] = -1.5
+    par, tp = preset("HIGH"), TemporalParams()
+    r = tp.max_displacement
+    ii = torch.arange(h0, dtype=torch.float64, device=dev)[:, None]
+    jj = torch.arange(w0, dtype=torch.float64, device=dev)[None, :]
+    h1, w1 = -(-h0 // 2), -(-w0 // 2)
+    for label, rl, kind in (("dolly", 0, "view"), ("dolly", 1, "view"),
+                            ("motion vectors", 0, "mv")):
+        eng = TemporalAOEngine(cam_hw, par, resolve_level=rl)
+        outs, states, total = [], [], {}
+        for t in range(t_n):
+            kw = ({"view": views[t]} if kind == "view" else
+                  {"motion": mv} if t else {})
+            got, run = launched(lambda: eng.render(depths[t], **kw))
+            outs.append(got)
+            states.append(eng._state)
+            total = {k: total.get(k, 0) + v for k, v in run.items()}
+        mot = ([None] + [mv] * (t_n - 1) if kind == "mv" else motions)
+        secs, step_err, band_err, seq_err, n_band = 0.0, 0.0, 0.0, 0.0, 0
+        seq_state = None
+        for t in range(t_n):
+            prev = states[t - 1] if t else None
+            if rl == 0:
+                (ao, linz), s = golden(lambda: (
+                    G.render_frame_golden(depths[t], cam_hw, par),
+                    G.linearize_depth(depths[t], cam_hw)))
+                null = (torch.ones_like(linz),
+                        torch.full_like(linz, GT.NULL_DEPTH))
+                (want, seq_out), s2 = golden(lambda: tuple(
+                    GT.temporal_resolve_golden(ao, linz, *hist, cam_hw, tp,
+                                               mot[t])
+                    for hist in (prev or null, seq_state or null)))
+                seq_state = (seq_out, linz)
+                band = None
+                if mot[t] is not None:
+                    ip, jp = (GT.mv_coords(mot[t]) if kind == "mv" else
+                              GT.reproject_coords(linz, cam_hw, mot[t])[:2])
+                    band = validity_band(ip, jp, ii, jj, h0, w0, r)
+            else:
+                (want, _), s = golden(
+                    lambda: GT.render_frame_l1_temporal_golden(
+                        depths[t], prev, cam_hw, par, tp, mot[t]))
+                (seq_out, seq_state), s2 = golden(
+                    lambda: GT.render_frame_l1_temporal_golden(
+                        depths[t], seq_state, cam_hw, par, tp, mot[t]))
+                band = None
+                if mot[t] is not None:
+                    d1 = G.build_pyramid(G.linearize_depth(
+                        depths[t], cam_hw), 1)[1]
+                    ip, jp, _, _ = GT.reproject_coords_l1(d1, h0, w0, cam_hw,
+                                                          mot[t])
+                    b1 = validity_band(ip, jp, 2.0 * ii[:h1], 2.0 * jj[:, :w1],
+                                       h0, w0, r)
+                    # a half-res texel reaches the full-res texels of the
+                    # lift's 3x3 filter and 2x2 taps: two texels around it
+                    b1 = torch.nn.functional.max_pool2d(
+                        b1[None, None].float(), 5, 1, 2)[0, 0] > 0
+                    band = b1.repeat_interleave(2, 0).repeat_interleave(
+                        2, 1)[:h0, :w0]
+            secs += s + s2
+            got = outs[t]
+            diff = (got.double() - want).abs()
+            if band is not None and bool(band.any()):
+                n_band += int(band.sum())
+                band_err = max(band_err, float(diff[band].max()))
+                diff = diff[~band]
+            step_err = max(step_err, float(diff.max()))
+            seq_err = max(seq_err, float((got.double() - seq_out).abs()
+                                         .max()))
+        path = f"temporal {label} resolve_level={rl}"
+        records.append({"path": path, "shape": [t_n, h0, w0],
+                        "max_abs_err": step_err, "golden_s": secs,
+                        "full_err": True, "sequence_err": seq_err,
+                        "band_texels": n_band, "band_err": band_err,
+                        "launches": total})
+        print(f"  {path}, {t_n} frames: each step vs the golden step from "
+              f"the engine's history max_abs_err={step_err:.3e} "
+              f"({n_band} texels in the validity band, masked, their max "
+              f"|diff| {band_err:.3e}); whole sequence vs the sequence "
+              f"oracle {seq_err:.3e}; golden {secs:.3f} s; launches "
+              f"{total}", flush=True)
+        if not step_err <= TOL_GOLDEN:
+            raise RuntimeError(f"golden {path}: {step_err} > {TOL_GOLDEN}")
+    del depths, frames, outs, states
+    torch.cuda.empty_cache()
+
+    # the two kernels no impl reaches, through their entry points at
+    # level 1 of 1080p (linear depth)
+    d, _ = frame(h0, w0, cam)
+    hp, wp = padded_shape(h0, w0)
+    zp = torch.nn.functional.pad(d[None], (0, wp - w0, 0, hp - h0),
+                                 mode="replicate")[0]
+    pyr = [x.contiguous() for x in P.build_pyramid(P.linearize_depth(zp, cam),
+                                                   4)]
+    (_, dbg), secs = golden(lambda: G.render_frame_golden(
+        d, cam, par, return_debug=True))
+    got, run = launched(lambda: K.render_ao_level_dma(pyr[1], 1, wp, cam,
+                                                      par))
+    hold("render_ao_level_dma 1080p level 1", got, dbg["ao_levels"][1], secs,
+         launches=run)
+    c1 = chain_inputs(K, cam, par, pyr, wp)[1]
+    want, s = golden(lambda: G.blur_upsample_step(
+        c1, dbg["pyramid"][1], dbg["pyramid"][0], par, wp,
+        lo_ao2=dbg["ao_levels"][1])[:h0, :w0])
+    got, run = launched(lambda: K.fused_render_upsample_step_zc(
+        pyr[1], c1, pyr[0], 1, wp, cam, par, crop_hw=(h0, w0)))
+    hold("fused_render_upsample_step_zc 1080p 1->0", got, want, secs + s,
+         launches=run)
+    del d, zp, pyr, dbg, c1, want, got
+    torch.cuda.empty_cache()
+    return records, crops
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -2394,6 +2736,9 @@ def main(argv=None) -> int:
 
     # 16: the spatial and grid modes on one card, asserting their counts
     spatial_paths = phase_spatial(chk, dev, K, F, card)
+
+    # 17: every path against the float64 golden on the card, full frame
+    golden_records, golden_crops = phase_golden(dev, K, F, card)
     paths = {"frame": main_counts, "ultra engine": ultra_counts,
              "temporal": temporal_counts, "variants": variant_counts,
              "serving": serving_counts, **mesh_paths,
@@ -2449,6 +2794,7 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on its path")
+    print(json.dumps({"golden": golden_records, "crops": golden_crops}))
     print(json.dumps({"kernels": kernels}))
     print(_card())
     print(json.dumps({"ok": True, "device": {

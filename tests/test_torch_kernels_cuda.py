@@ -696,3 +696,30 @@ def test_spatial_1080p_on_two_bands_of_one_card(dev):
     want = render_frame(padded, CAM)[HALO_ROWS: HALO_ROWS + 1080]
     assert got.shape == (1080, 1920) and got.device == z.device
     assert torch.equal(got, want)
+
+
+def test_golden_on_the_card(dev):
+    """The float64 golden on the card agrees with the CPU's within 1e-12
+    at 135x240 (HIGH, and ULTRA with normals), and the HIGH ``auto`` frame
+    (render 1, upsample 1, fused 3 launches) is within 1e-4 of the card's
+    golden, the bound the CPU tests hold the plain path to."""
+    from tpuao_torch.golden import render_frame_golden
+
+    cam = CameraParams()
+    z, n = F.spheres_on_plane(135, 240, cam, seed=11, with_normals=True)
+    d = torch.as_tensor(F.to_hardware_depth(z, cam).astype(np.float32),
+                        device=dev)
+    nrm = torch.as_tensor(n.astype(np.float32), device=dev)
+    for name in ("HIGH", "ULTRA"):
+        par = preset(name)
+        g = render_frame_golden(d, cam, par, nrm)
+        assert g.device == d.device and g.dtype == torch.float64
+        c = render_frame_golden(d.cpu(), cam, par, nrm.cpu())
+        assert float((g.cpu() - c).abs().max()) <= 1e-12
+    K.reset_launch_counts()
+    got = render_frame(d, cam, preset("HIGH"), impl="auto")
+    assert K.launch_counts() == counts(render_ao_level=1,
+                                       blur_upsample_step=1,
+                                       fused_render_upsample_step=3)
+    want = render_frame_golden(d, cam, preset("HIGH"))
+    close(got.double(), want, 1e-4)

@@ -22,14 +22,8 @@ Pallas kernel of the JAX package written by hand in CUDA C++ for
     out = eng.render(depth, normals=normals, view=view_matrix)
 """
 
-from tpuao_torch.models.pipeline import (  # noqa: F401
-    AmbientOcclusionEngine,
-    TemporalAOEngine,
-    render_frame,
-    render_frame_temporal,
-    render_sequence_temporal,
-)
-from tpuao_torch.models.presets import PRESETS, preset  # noqa: F401
+import importlib
+
 from tpuao_torch.params import (  # noqa: F401
     AOParams,
     CameraParams,
@@ -38,4 +32,27 @@ from tpuao_torch.params import (  # noqa: F401
     build_pair_table,
 )
 
+# The entry points load on first use, so importing a light submodule
+# (``tpuao_torch.params``, the float64 golden ``tpuao_torch.golden``) does
+# not import the pipeline and its ops.
+_LAZY = {
+    "AmbientOcclusionEngine": "tpuao_torch.models.pipeline",
+    "TemporalAOEngine": "tpuao_torch.models.pipeline",
+    "render_frame": "tpuao_torch.models.pipeline",
+    "render_frame_temporal": "tpuao_torch.models.pipeline",
+    "render_sequence_temporal": "tpuao_torch.models.pipeline",
+    "PRESETS": "tpuao_torch.models.presets",
+    "preset": "tpuao_torch.models.presets",
+}
+
+__all__ = ["AOParams", "CameraParams", "PARAM_RANGES", "TemporalParams",
+           "build_pair_table", *_LAZY]
+
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module 'tpuao_torch' has no attribute "
+                             f"{name!r}")
+    return getattr(importlib.import_module(_LAZY[name]), name)

@@ -376,6 +376,41 @@ def from_tpuao(ao_dict: dict, camera_dict: dict, temporal_dict=None):
 
 
 # ---------------------------------------------------------------------------
+# Plain-float parameters for the float64 golden spec (tpuao_torch.golden)
+# ---------------------------------------------------------------------------
+
+
+def _one_float(v) -> float:
+    """One tunable as a Python float: a float, a NumPy scalar or a 0-d
+    tensor (autodiff leaves are detached).  A camera rig's (V,) leaf
+    raises ``TypeError``: the golden takes one camera and one set of
+    tunables, so a rig goes view by view."""
+    a = np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+    if a.ndim:
+        raise TypeError(f"a tunable of shape {a.shape} is not one value; "
+                        "give the golden one view's parameters at a time")
+    return float(a)
+
+
+def to_golden(params, camera) -> tuple[AOParams, CameraParams]:
+    """``(params, camera)`` with every tunable, and the camera's near, far
+    and field of view, as Python floats: what ``tpuao.params.to_golden``
+    gives the JAX package's golden, here in the port's own classes."""
+    gp = params.replace(**{k: _one_float(getattr(params, k))
+                           for k in PARAM_RANGES})
+    gc = camera.replace(**{k: _one_float(getattr(camera, k))
+                           for k in ("near", "far", "tan_half_fov_h")})
+    return gp, gc
+
+
+def to_golden_temporal(tparams) -> TemporalParams:
+    """``tparams`` with its two tunables as Python floats (as
+    ``tpuao.params.to_golden_temporal``)."""
+    return tparams.replace(**{k: _one_float(getattr(tparams, k))
+                              for k in TEMPORAL_PARAM_RANGES})
+
+
+# ---------------------------------------------------------------------------
 # Derived per-level constants
 # ---------------------------------------------------------------------------
 
