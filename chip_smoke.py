@@ -125,10 +125,25 @@ Phases, one or more lines each:
               DMA and zero-copy entry points at level 1 of 1080p; the
               golden on the card against the CPU's at 270x480 (<= 1e-12);
               bench.py's three sampled crops at 4K and 8K against the
-              full-frame golden.
+              full-frame golden;
+18. sections -- one frame in sequential row sections on the card
+              (``tpuao_torch.parallel.sections``): 8K HIGH at k = 2, 4, 8
+              and in the fused form at k = 2, 4, each bit-equal to the
+              monolithic frame and within 1e-4 of the golden, launching k
+              times the frame's kernels, its peak memory beside the
+              prediction (``sections_peak``), its event and graph-replay
+              device ms beside the monolithic frame's, in turns; 4K ULTRA
+              with normals and uint8 colour at k = 3 through the engine;
+              1080p on 8 sections (a clamped plan: equal to the frame;
+              the fused form raises); a 16K-class frame (8640 x 15360) at
+              k = 1, 2, 4, 8 against its golden, k = 4 and 8 below the
+              monolithic frame's peak memory; ``render --sections 4`` on
+              an 8K PFM bit-equal to ``render_frame_sections``.
 
 Then a JSON line ``{"golden": [...], "crops": [...]}`` (each path's shape,
-max_abs_err and golden seconds), a JSON line ``{"kernels": [...]}`` (each
+max_abs_err and golden seconds), a JSON line ``{"sections": [...]}`` (each
+sections path's errors, peak memory and prediction, rows and times), a
+JSON line ``{"kernels": [...]}`` (each
 kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
 time beside it as ``event_ms``, its plain version's event time, computed
@@ -136,7 +151,7 @@ bound and library call: grid_sample's device time for the windowed
 resolve, none for the rest; ``launches_by_path`` its launches on every
 path driven: frame, ULTRA engine, temporal, variants, serving, mesh
 views, fleet at each level, mesh server, autodiff and the spatial and
-grid runs), the nvidia-smi
+grid runs and the sections), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
@@ -176,6 +191,9 @@ BAND_EPS = 1e-3  # texels: a temporal texel this close to a validity
 GOLDEN_SIZES = {"check": (270, 480), "720p": (720, 1280),
                 "1080p": (1080, 1920), "4K": (2160, 3840),
                 "8K": (4320, 7680)}  # phase 17's frames
+SECTION_SIZES = {"1080p": (1080, 1920), "4K": (2160, 3840),
+                 "8K": (4320, 7680),
+                 "16K": (8640, 15360)}  # phase 18's frames
 PARENT_CSRC = "tpuao_torch/_build/parent_csrc"
 
 # The bound: the least time the card could take for a call's work, the
@@ -2153,6 +2171,272 @@ def phase_golden(dev, K, F, card):
     return records, crops
 
 
+def frame_peak(rows: int, w: int) -> tuple[int, int]:
+    """Predicted peak bytes of one HIGH ``auto`` frame program call
+    (``ao_pipeline``) on (rows, w) float32 hardware depth, beyond its
+    input, and the bytes it still holds when its last step has written.
+    Linearising holds the padded depth where padding copies it and three
+    planes at once: ``1.0 / x`` is ``x.reciprocal() * 1.0`` in PyTorch,
+    so x, its reciprocal and the product coexist.  At the end: the linear
+    depth, pyramid levels 1-4, the level-4 AO, the chain's outputs at
+    levels 3-1 and the cropped result.  The kernels allocate their
+    outputs and nothing else."""
+    rp, wp = -(-rows // 64) * 64, -(-w // 64) * 64
+    plane = 4 * rp * wp
+    copy = plane if (rp, wp) != (rows, w) else 0
+    end = plane + plane * (85 + 1 + 4 + 16 + 64) // 256 + 4 * rows * w
+    return max(copy + 3 * plane, end), end
+
+
+def sections_peak(h: int, w: int, k: int, halo: int) -> int:
+    """Predicted peak bytes of ``render_frame_sections`` beyond its input:
+    the output (allocated when the first section's result is in hand,
+    beside it) plus the largest section's ``frame_peak``; sections that
+    keep no row are not rendered."""
+    from tpuao_torch.parallel.sections import section_plan
+
+    out, peak, first = 4 * h * w, 0, True
+    for a, b, off in section_plan(h, k, halo)[2]:
+        if a + off >= h:
+            continue
+        rows = min(b, h) - a
+        p = frame_peak(rows, w)[0]
+        peak = max(peak, p, 4 * rows * w + out) if first else max(peak,
+                                                                   out + p)
+        first = False
+    return peak
+
+
+def section_rows(h: int, k: int, halo: int) -> int:
+    """Rows the frame program runs on over a plan: each rendered section's
+    rows, padded to 64 as the program pads them."""
+    from tpuao_torch.parallel.sections import section_plan
+
+    return sum(-(-(min(b, h) - a) // 64) * 64
+               for a, b, off in section_plan(h, k, halo)[2] if a + off < h)
+
+
+def phase_sections(chk, dev, K, F, card):
+    """18. Sequential sections on one card (``tpuao_torch.parallel.
+    sections``): 8K HIGH ``auto`` at k = 2, 4, 8 and fused at k = 2, 4,
+    each bit-equal to the monolithic frame, within TOL_GOLDEN of the
+    golden, launching k times the frame's kernels, with its peak memory
+    beside the prediction; device ms by graph replay and event ms beside
+    the monolithic frame's and the work ratio, in turns; 4K ULTRA with
+    normals and uint8 colour at k = 3; 1080p at k = 8 (a clamped plan:
+    the separate form equals the frame, the fused form raises); a
+    16K-class frame's peak memory at k = 1 (monolithic), 2, 4, 8, each
+    against the golden; ``render --sections 4`` on an 8K PFM bit-equal to
+    ``render_frame_sections``.  Returns each path's launch counts."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.golden import reference as G
+    from tpuao_torch.models.pipeline import AmbientOcclusionEngine, render_frame
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.params import AOParams, CameraParams
+    from tpuao_torch.parallel.sections import (render_frame_sections,
+                                               render_frame_sections_fused,
+                                               section_plan)
+    from tpuao_torch.parallel.spatial import stencil_halo_rows
+    from tpuao_torch.utils.frameio import load_pfm, save_pfm
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
+
+    cam_hw, par = CameraParams(), AOParams()
+    halo = stencil_halo_rows(par)
+    per = counts(render_ao_level=1, blur_upsample_step=1,
+                 fused_render_upsample_step=3)
+    times = lambda c, n: {k: v * n for k, v in c.items()}
+    paths, records = {}, []
+    S = SECTION_SIZES
+    print(f"sections (one card, halo {halo} rows) [{card}]:")
+
+    def run(label, fn, want):
+        """``fn()`` with its launches counted and its peak memory read:
+        (output, peak allocated and reserved bytes beyond what was
+        allocated and reserved just before)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        base_r = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        expect_counts(K, label, want)
+        paths[label] = K.launch_counts()
+        if out.device != dev:
+            raise RuntimeError(f"{label} ran on {out.device}, not {dev}")
+        return (out, torch.cuda.max_memory_allocated() - base,
+                torch.cuda.max_memory_reserved() - base_r)
+
+    def hold(label, got, want, gold, peak, predicted, **extra):
+        """``got`` against the monolithic frame ``want`` (bit for bit; None
+        for the monolithic frame itself) and the float64 golden
+        (TOL_GOLDEN), with its peak memory beside the prediction; one
+        record."""
+        rec = {"path": label, "shape": list(got.shape)}
+        line = f"  {label}:"
+        if want is not None:
+            rec["vs_monolithic"] = chk.close("", label, got, want, tol=0.0,
+                                             quiet=True)
+            line += f" vs the monolithic frame {rec['vs_monolithic']:.3e},"
+        g = float((got.double() - gold).abs().max())
+        rec.update(vs_golden=g, **extra)
+        line += f" vs the golden {g:.3e}"
+        rec.update(peak_alloc_mb=peak[0] / 1e6, peak_reserved_mb=peak[1] /
+                   1e6, predicted_mb=predicted / 1e6)
+        line += (f"; peak allocated {peak[0] / 1e6:.1f} MB (predicted "
+                 f"{predicted / 1e6:.1f}), reserved {peak[1] / 1e6:.1f} MB, "
+                 "beyond what was allocated before")
+        records.append(rec)
+        print(line + "".join(f", {k} {v}" for k, v in extra.items()),
+              flush=True)
+        if not g <= TOL_GOLDEN:
+            raise RuntimeError(f"{label}: vs the golden {g} > {TOL_GOLDEN}")
+
+    def depth(h, w, seed=SEED):
+        z = F.to_hardware_depth(F.spheres_on_plane(h, w, cam_hw, seed=seed),
+                                cam_hw)
+        return torch.as_tensor(z.astype(np.float32), device=dev)
+
+    # 8K HIGH auto, depth only: the separate and fused forms
+    h8, w8 = S["8K"]
+    d8 = depth(h8, w8)
+    mono, *pk = run("sections 8K monolithic", lambda: render_frame(
+        d8, cam_hw, par), per)
+    gold = G.render_frame_golden(d8, cam_hw, par)
+    hold("8K monolithic", mono, None, gold, pk, frame_peak(h8, w8)[0],
+         rows=section_rows(h8, 1, halo))
+    forms = {"separate": render_frame_sections,
+             "fused": render_frame_sections_fused}
+    fns = {"8K monolithic": lambda: render_frame(d8, cam_hw, par)}
+    outs8 = {}
+    for form, k in (("separate", 2), ("separate", 4), ("separate", 8),
+                    ("fused", 2), ("fused", 4)):
+        label = f"8K k={k} {form}"
+        fn = (lambda f=forms[form], k=k: f(d8, cam_hw, par, n_sections=k))
+        out, *pk = run(f"sections {label}", fn, times(per, k))
+        outs8[k] = out
+        hold(label, out, mono, gold, pk, sections_peak(h8, w8, k, halo),
+             launches=5 * k, rows=section_rows(h8, k, halo))
+        fns[label] = fn
+    del gold
+    # times, in turns: the monolithic frame beside its sections
+    base_rows = section_rows(h8, 1, halo)
+    order = list(fns) + list(fns)[::-1]
+    dev_ms = {}
+    for name in order:
+        ev, dv = cuda_time_ms(fns[name]), cuda_graph_ms(fns[name])
+        dev_ms.setdefault(name, []).append((dv, ev))
+        print(f"  {name}: event {ev:.4f} ms, device {dv:.4f} ms (graph "
+              f"replay) [{card}]", flush=True)
+    mono_dv = min(d for d, _ in dev_ms["8K monolithic"])
+    for name in list(fns)[1:]:
+        k = int(name.split("k=")[1].split()[0])
+        rows = section_rows(h8, k, halo)
+        ratio = min(d for d, _ in dev_ms[name]) / mono_dv
+        print(f"  {name} / 8K monolithic: device {ratio:.3f}x against rows "
+              f"{rows}/{base_rows} = {rows / base_rows:.3f}x", flush=True)
+        for rec in records:
+            if rec["path"] == name:
+                rec.update(device_ms=[d for d, _ in dev_ms[name]],
+                           event_ms=[e for _, e in dev_ms[name]])
+    records[0].update(device_ms=[d for d, _ in dev_ms["8K monolithic"]],
+                      event_ms=[e for _, e in dev_ms["8K monolithic"]])
+
+    # the CLI: render --sections 4 on an 8K PFM
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = pathlib.Path(tmp) / "d8k.pfm", pathlib.Path(tmp) / "o.pfm"
+        save_pfm(str(src), d8.cpu().numpy())
+        cli_counts(K, "render --sections 4, 8K PFM", times(per, 4),
+                   ["render", src, dst, "--sections", 4])
+        got = torch.as_tensor(load_pfm(str(dst)))
+        chk.close("", "render --sections 4 (8K PFM) vs "
+                  "render_frame_sections", got, outs8[4].cpu(), tol=0.0)
+    del d8, mono, outs8, fns
+    torch.cuda.empty_cache()
+
+    # 4K ULTRA with normals and uint8 colour, 3 sections
+    ultra = preset("ULTRA")
+    h4, w4 = S["4K"]
+    z4, n4 = F.spheres_on_plane(h4, w4, cam_hw, seed=SEED + 1,
+                                with_normals=True)
+    d4 = torch.as_tensor(F.to_hardware_depth(z4, cam_hw).astype(np.float32),
+                         device=dev)
+    n4 = torch.as_tensor(n4.astype(np.float32), device=dev)
+    rgb = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, 256, (h4, w4, 3), dtype=np.uint8), device=dev)
+    want = render_frame(d4, cam_hw, ultra, normals=n4, color=rgb,
+                        out_dtype="uint8")
+    eng = AmbientOcclusionEngine(cam_hw, ultra, out_dtype="uint8")
+    got, *_ = run("sections ULTRA 4K k=3", lambda: eng.render_sections(
+        d4, 3, normals=n4, color=rgb),
+        counts(render_ao_level_normals=12, blur_upsample_step=12))
+    if got.dtype != torch.uint8 or tuple(got.shape) != (h4, w4, 3):
+        raise RuntimeError(f"ULTRA sections gave {got.dtype} {got.shape}")
+    err = chk.close("", "4K ULTRA, normals, uint8 colour, k=3 "
+                    "(engine.render_sections), launches 12/12, vs the "
+                    "monolithic frame (codes)", got, want, tol=1)
+    records.append({"path": "4K ULTRA k=3 uint8 colour",
+                    "shape": list(got.shape), "vs_monolithic": err})
+    del d4, n4, rgb, want, got
+
+    # 1080p on 8 sections: a clamped plan (band 192 < halo 320)
+    h1, w1 = S["1080p"]
+    d1 = depth(h1, w1)
+    want = render_frame(d1, cam_hw, par)
+    kept = sum(a + off < h1 for a, _, off in section_plan(h1, 8, halo)[2])
+    got, *_ = run("sections 1080p k=8 (clamped)", lambda:
+                  render_frame_sections(d1, cam_hw, par, n_sections=8),
+                  times(per, kept))
+    err = chk.close("", f"1080p k=8 (clamped plan, {kept} sections keep "
+                    f"rows, launches {5 * kept}) vs the monolithic frame",
+                    got, want, tol=0.0)
+    records.append({"path": "1080p k=8 clamped", "shape": list(got.shape),
+                    "vs_monolithic": err, "launches": 5 * kept})
+    try:
+        render_frame_sections_fused(d1, cam_hw, par, n_sections=8)
+    except ValueError as e:
+        print(f"  1080p k=8 fused: raises ValueError ({e})", flush=True)
+    else:
+        raise RuntimeError("the fused form took a clamped plan")
+    del d1, want, got
+    torch.cuda.empty_cache()
+
+    # the 16K-class frame: peak memory at k = 1, 2, 4, 8, each vs the
+    # golden (and the sections vs the monolithic frame)
+    h16, w16 = S["16K"]
+    d16 = depth(h16, w16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gold = G.render_frame_golden(d16, cam_hw, par)
+    torch.cuda.synchronize()
+    print(f"  16K golden: peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB",
+          flush=True)
+    mono, *pk = run("sections 16K monolithic", lambda: render_frame(
+        d16, cam_hw, par), per)
+    hold("16K monolithic", mono, None, gold, pk, frame_peak(h16, w16)[0],
+         rows=section_rows(h16, 1, halo))
+    mono_peak = pk[0]
+    for k in (2, 4, 8):
+        out, *pk = run(f"sections 16K k={k}", lambda k=k:
+                       render_frame_sections(d16, cam_hw, par,
+                                             n_sections=k), times(per, k))
+        hold(f"16K k={k} separate", out, mono, gold, pk,
+             sections_peak(h16, w16, k, halo), launches=5 * k,
+             rows=section_rows(h16, k, halo))
+        if k >= 4 and not pk[0] < mono_peak:
+            raise RuntimeError(f"16K k={k}: peak {pk[0]} B not below the "
+                               f"monolithic frame's {mono_peak} B")
+        del out
+    del d16, gold, mono
+    torch.cuda.empty_cache()
+    return paths, records
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -2739,10 +3023,13 @@ def main(argv=None) -> int:
 
     # 17: every path against the float64 golden on the card, full frame
     golden_records, golden_crops = phase_golden(dev, K, F, card)
+
+    # 18: sequential sections on one card, asserting their counts
+    section_paths, section_records = phase_sections(chk, dev, K, F, card)
     paths = {"frame": main_counts, "ultra engine": ultra_counts,
              "temporal": temporal_counts, "variants": variant_counts,
              "serving": serving_counts, **mesh_paths,
-             "autodiff": autodiff_counts, **spatial_paths}
+             "autodiff": autodiff_counts, **spatial_paths, **section_paths}
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
@@ -2795,6 +3082,7 @@ def main(argv=None) -> int:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on its path")
     print(json.dumps({"golden": golden_records, "crops": golden_crops}))
+    print(json.dumps({"sections": section_records}))
     print(json.dumps({"kernels": kernels}))
     print(_card())
     print(json.dumps({"ok": True, "device": {

@@ -269,18 +269,33 @@ def test_usage_errors_exit_like_tpuao(case, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["render", "d.pfm", "o.pfm", "--sections", "2"],
     ["render", "d.pfm", "o.pfm", "--autotune-cache", "x.json"],
     ["render", "d.pfm", "o.pfm", "--server", "http://127.0.0.1:9",
      "--device", "cpu"],
     ["serve", "8080", "--autotune-cache", "x.json"]])
 def test_what_the_port_rejects_exits_2(argv, capsys):
-    """``--sections`` and ``--autotune-cache`` name the ROADMAP item they
-    wait for; ``--device`` is engine state to a remote render.  Nothing is
-    read or rendered before the exit."""
+    """``--autotune-cache`` names the ROADMAP item that keeps it out;
+    ``--device`` is engine state to a remote render.  Nothing is read or
+    rendered before the exit."""
     assert CLI.main(argv) == 2
     err = capsys.readouterr().err
     assert "ROADMAP" in err or "server-side" in err
+
+
+def test_render_sections_matches_tpuao(tmp_path):
+    """``render --sections 2`` on a 704-row frame (two sections of 384 kept
+    rows, halo 320): tpuao's file within 2e-6, its sections' own bound,
+    and the port's whole frame bit for bit."""
+    z, _ = _depth(h=704)
+    src = str(tmp_path / "d.pfm")
+    save_pfm(src, z)
+    a, b = _both([src, "--depth-mode", "linear", "--sections", "2"],
+                 tmp_path, "ao.pfm")
+    got = load_pfm(str(b))
+    assert got.shape == (704, W)
+    np.testing.assert_allclose(got, load_pfm(str(a)), atol=2e-6)
+    np.testing.assert_array_equal(got, render_frame(
+        z, CameraParams(depth_mode="linear"), device="cpu").numpy())
 
 
 def test_serve_views_reaches_the_server_with_a_mesh(monkeypatch):

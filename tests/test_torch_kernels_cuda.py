@@ -723,3 +723,25 @@ def test_golden_on_the_card(dev):
                                        fused_render_upsample_step=3)
     want = render_frame_golden(d, cam, preset("HIGH"))
     close(got.double(), want, 1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sections_1080p_equal_the_monolithic_frame(dev, k):
+    """1080p HIGH in k sequential sections on the card (halo 320; plans
+    of 1152 and 1280 rows, bands of 576 and 320) is the monolithic frame
+    bit for bit, in both forms, with k times its launches."""
+    from tpuao_torch.parallel.sections import (render_frame_sections,
+                                               render_frame_sections_fused)
+
+    z = torch.as_tensor(F.spheres_on_plane(1080, 1920, CAM, seed=4),
+                        dtype=torch.float32, device=dev)
+    want = render_frame(z, CAM)
+    K.reset_launch_counts()
+    got = render_frame_sections(z, CAM, n_sections=k)
+    assert K.launch_counts() == counts(render_ao_level=k,
+                                       blur_upsample_step=k,
+                                       fused_render_upsample_step=3 * k)
+    assert got.shape == (1080, 1920) and got.device == z.device
+    assert torch.equal(got, want)
+    assert torch.equal(render_frame_sections_fused(z, CAM, n_sections=k),
+                       want)

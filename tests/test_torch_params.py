@@ -227,6 +227,7 @@ def test_import_loads_no_jax():
         "import tpuao_torch.cli, tpuao_torch.utils.debug_dump, runpy\n"
         "import tpuao_torch.models.autodiff\n"
         "import tpuao_torch.parallel.spatial, tpuao_torch.parallel.grid\n"
+        "import tpuao_torch.parallel.sections\n"
         "import tpuao_torch.golden, tpuao_torch.golden.temporal\n"
         "sys.argv = ['tpuao_torch', '--help']\n"
         "try:\n"

@@ -624,3 +624,199 @@ def test_engine_render_spatial_matches_tpuao():
         got.numpy(), SP.render_frame_spatial(
             z, CameraParams(**LIN), mesh=["cpu"] * 2,
             out_dtype="uint8").numpy())
+
+
+# -- sequential sections against tpuao's, and against the port's own frame --
+#
+# tpuao and the port both with impl="jnp" (the port's plain ops on the
+# CPU); tpuao's own bound for its sections against its frame is 2e-6
+# (tests/test_sections.py).  The port's sections equal its monolithic
+# frame: bounded at 1e-6 here and printed (0.0 expected).
+
+from tpuao.parallel import sections as JSC  # noqa: E402
+
+from tpuao_torch.parallel import sections as SC  # noqa: E402
+
+SEC_TOL = 2e-6
+
+
+def _vs_monolithic(got, want, label):
+    err = float((got.double() - want.double()).abs().max())
+    print(f"{label}: sections vs the port's monolithic frame "
+          f"max_abs_err={err:.3e}")
+    assert err <= 1e-6, (label, err)
+
+
+@pytest.mark.parametrize("h, k, halo", [
+    (2560, 4, 320), (1000, 3, 128), (512, 1, 320), (704, 2, 320),
+    (4320, 8, 320), (1080, 8, 320), (512, 2, 320), (100, 3, 64),
+    (8640, 4, 320), (1, 2, 0)])
+def test_section_plan_matches_tpuao(h, k, halo):
+    """Bounds, band and crop offsets as tpuao's, clamped plans (band <
+    halo: 1080 rows on 8, 512 on 2, 100 on 3) included."""
+    assert SC.section_plan(h, k, halo) == JSC.section_plan(h, k, halo)
+
+
+def test_section_plan_refuses_what_tpuao_asserts():
+    for k, halo in ((0, 320), (2, 100), (2, -64)):
+        with pytest.raises(ValueError):
+            SC.section_plan(512, k, halo)
+    with pytest.raises(AssertionError):
+        JSC.section_plan(512, 2, 100)
+
+
+@pytest.mark.parametrize("case", [
+    "704 depth 4 k=2", "1000 depth 2 k=3", "batch of 2",
+    "normals uint8 colour", "channel-first normals, 2-D colour",
+    "random depth 704 k=2"])
+def test_render_frame_sections_matches_tpuao(case):
+    """tpuao's sections within 2e-6 (uint8 codes within 1), and the port's
+    own monolithic frame within 1e-6.  On random depth tpuao's sections
+    leave its frame near the bottom edge (its last section, edge-padded to
+    the plan's 768 rows, ends below the frame's 704: ROADMAP queue 3), so
+    the port is held to tpuao's monolithic frame there instead."""
+    cam, jcam = CameraParams(**LIN), JCameraParams(**LIN)
+    par, k, kw, nrm = {}, 2, {}, None
+    if case in ("704 depth 4 k=2", "random depth 704 k=2"):
+        z = F.spheres_on_plane(704, 64, cam, n_spheres=3, seed=6)
+        if case.startswith("random"):
+            z = np.random.default_rng(6).uniform(0.2, 0.9, (704, 64))
+        z = z.astype(np.float32)
+    elif case == "1000 depth 2 k=3":
+        z = F.spheres_on_plane(1000, 64, cam, n_spheres=4, seed=7
+                               ).astype(np.float32)
+        par, k = dict(hierarchy_depth=2), 3
+    elif case == "batch of 2":
+        z = np.stack([F.spheres_on_plane(512, 64, cam, n_spheres=3,
+                                         seed=20 + i) for i in range(2)]
+                     ).astype(np.float32)
+        par = dict(hierarchy_depth=2)
+    else:  # d = 2 with normals (halo 128) on 448 rows: ha 512
+        z, nrm = (a.astype(np.float32) for a in F.spheres_on_plane(
+            448, 64, cam, n_spheres=4, seed=8, with_normals=True))
+        par = dict(hierarchy_depth=2, use_normals=True)
+        rng = np.random.default_rng(3)
+        if case == "normals uint8 colour":
+            kw = dict(color=rng.integers(0, 255, (448, 64, 3),
+                                         dtype=np.uint8), out_dtype="uint8")
+        else:
+            nrm = np.ascontiguousarray(np.moveaxis(nrm, -1, 0))
+            kw = dict(color=rng.uniform(0, 1, (448, 64)).astype(np.float32))
+    got = SC.render_frame_sections(z, cam, AOParams(**par), n_sections=k,
+                                   impl="jnp", normals=nrm, device="cpu",
+                                   **kw)
+    mono = render_frame(z, cam, AOParams(**par), normals=nrm, impl="jnp",
+                        device="cpu", **kw)
+    assert got.shape == mono.shape == np.shape(kw.get("color", z))
+    assert got.dtype == mono.dtype
+    if case.startswith("random"):
+        want = np.asarray(JPL.render_frame(jnp.asarray(z), jcam, JAOParams(),
+                                           impl="jnp"))
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+        ref = np.asarray(JSC.render_frame_sections(
+            jnp.asarray(z), jcam, JAOParams(), n_sections=k, impl="jnp"))
+        off = float(np.abs(ref - want).max())
+        print(f"{case}: tpuao's sections vs tpuao's frame {off:.3e}")
+        assert off > 1e-3  # the reference fault this case steps round
+    else:
+        want = np.asarray(JSC.render_frame_sections(
+            jnp.asarray(z), jcam, JAOParams(**par), n_sections=k, impl="jnp",
+            normals=None if nrm is None else jnp.asarray(nrm), **kw))
+        if got.dtype == torch.uint8:
+            assert np.abs(got.numpy().astype(int) - want.astype(int)
+                          ).max() <= 1
+        else:
+            np.testing.assert_allclose(got.numpy(), want, atol=SEC_TOL)
+    _vs_monolithic(got, mono, case)
+
+
+@pytest.mark.parametrize("d, blur, k", [
+    (1, True, 2), (2, True, 2), (3, True, 2), (4, True, 2), (4, False, 2),
+    (4, True, 1), (4, True, 4), (4, True, 8)])
+def test_sections_equal_the_monolithic_frame(d, blur, k, monkeypatch):
+    """The derived halo suffices at every depth: on random depth (no
+    saturated plane to hide a truncated stencil) each section's kept rows
+    equal the monolithic frame's on max(256, 2 halo) rows; one section is
+    the frame bit for bit; 640 rows on 4 sections is a clamped plan (band
+    192 < halo 320).  540 rows on 8 sections (band 128) leave the last
+    three sections no row to keep, and they are not rendered: the
+    coarsest level renders once a section that keeps rows.  At depths 1
+    and 2 a halo 64 rows short of the derived one differs from the frame
+    (at depths 3 and 4 the pair estimator's far taps saturate on these
+    scenes, so a shorter halo reads the same)."""
+    par = AOParams(hierarchy_depth=d, enable_blur=blur)
+    halo = SC.stencil_halo_rows(par)
+    h = 540 if k == 8 else max(256, 2 * halo)
+    z = np.random.default_rng(10 + d).uniform(0.2, 0.9, (h, 64)).astype(
+        np.float32)
+    mono = render_frame(z, CameraParams(**LIN), par, device="cpu")
+    calls = []
+    real = K.render_ao_level
+    monkeypatch.setattr(K, "render_ao_level",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got = SC.render_frame_sections(z, CameraParams(**LIN), par,
+                                   n_sections=k, device="cpu")
+    if k == 1:
+        np.testing.assert_array_equal(got.numpy(), mono.numpy())
+    _vs_monolithic(got, mono, f"depth {d} blur {blur} k={k}")
+    _, _, plan = SC.section_plan(h, k, halo)
+    kept = sum(a + off < h for a, _, off in plan)
+    assert len(calls) == kept == (5 if k == 8 else k)
+    if d <= 2 and k == 2:  # the check has teeth: a halo 64 rows short
+        short = SC.render_frame_sections(z, CameraParams(**LIN), par,
+                                         halo_rows=halo - 64, device="cpu")
+        assert float((short - mono).abs().max()) > 1e-3
+
+
+def test_sections_fused_equals_separate_and_refuses_clamped_plans():
+    """The fused form is the separate form bit for bit (tpuao's fused form
+    within 2e-6), at k = 2 and 4; on a clamped plan (512 rows, k = 2,
+    halo 320) it raises as tpuao's does, while the separate form still
+    equals the frame; it takes one (H, W) frame of its plan's height."""
+    cam, jcam = CameraParams(**LIN), JCameraParams(**LIN)
+    z = F.spheres_on_plane(1280, 64, cam, n_spheres=4, seed=6).astype(
+        np.float32)
+    for k in (2, 4):
+        got = SC.render_frame_sections_fused(z, cam, n_sections=k,
+                                             device="cpu")
+        np.testing.assert_array_equal(got.numpy(), SC.render_frame_sections(
+            z, cam, n_sections=k, device="cpu").numpy())
+    want = np.asarray(JSC.render_frame_sections_fused(
+        jnp.asarray(z[:704]), jcam, JAOParams(), n_sections=2, impl="jnp"))
+    got = SC.render_frame_sections_fused(z[:704], cam, impl="jnp",
+                                         device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, atol=SEC_TOL)
+    small = z[:512]
+    with pytest.raises(ValueError, match="band 256 < halo 320"):
+        SC.render_frame_sections_fused(small, cam, device="cpu")
+    with pytest.raises(AssertionError, match="band"):
+        JSC.render_frame_sections_fused(jnp.asarray(small), jcam,
+                                        JAOParams(), n_sections=2,
+                                        impl="jnp")
+    _vs_monolithic(SC.render_frame_sections(small, cam, device="cpu"),
+                   render_frame(small, cam, device="cpu"), "512 rows, k=2")
+    with pytest.raises(ValueError, match="single .H, W. frame"):
+        SC.render_frame_sections_fused(z[None], cam, device="cpu")
+    fn = SC.sections_fused_fn(2, 768, 384, 320, "auto")
+    with pytest.raises(ValueError, match="does not align"):
+        fn(torch.as_tensor(z), cam, AOParams())
+    if not torch.cuda.is_available():  # NumPy goes to the card by default
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SC.render_frame_sections(small)
+
+
+def test_engine_render_sections_matches_the_function():
+    """The engine's render_sections passes its camera, params, impl,
+    out_dtype and device: the function's result, and ``render``'s."""
+    cam = CameraParams(**LIN)
+    z, n = (a.astype(np.float32) for a in F.spheres_on_plane(
+        704, 64, cam, n_spheres=3, seed=5, with_normals=True))
+    eng = AmbientOcclusionEngine(cam, preset("ULTRA"), out_dtype="uint8",
+                                 device="cpu")
+    got = eng.render_sections(z, 3, normals=n)
+    assert got.dtype == torch.uint8 and got.shape == z.shape
+    np.testing.assert_array_equal(got.numpy(), SC.render_frame_sections(
+        z, cam, preset("ULTRA"), n_sections=3, normals=n, out_dtype="uint8",
+        device="cpu").numpy())
+    np.testing.assert_array_equal(got.numpy(), eng.render(z, normals=n)
+                                  .numpy())

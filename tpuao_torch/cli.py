@@ -14,11 +14,12 @@ linear`` is implied unless overridden), and a ``.png`` output is the AO
 buffer as 8-bit grayscale.
 
 What the JAX package's CLI has and this one rejects (exit 2): ``tune``
-and ``--autotune-cache`` (the TPU's scoped-VMEM budget) and ``render
---sections N`` (row sections, a measured TPU rejection).  ``serve --views
-N`` serves over a mesh of N devices (N CPU entries with ``--device
-cpu``).  With no card and no ``--device cpu``, ``render`` exits 1:
-nothing falls back to the CPU unasked.
+and ``--autotune-cache`` (the TPU's scoped-VMEM budget).  ``render
+--sections N`` renders one frame in N row sections, one after another
+(``tpuao_torch.parallel.sections``): the frame's result at a bounded
+peak device memory.  ``serve --views N`` serves over a mesh of N devices
+(N CPU entries with ``--device cpu``).  With no card and no ``--device
+cpu``, ``render`` exits 1: nothing falls back to the CPU unasked.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 
 from tpuao_torch.params import PARAM_RANGES
 
-_ROADMAP_TPU = "ROADMAP queue 1 item 7"
+_ROADMAP_TPU = "ROADMAP queue 1 item 3"
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -85,8 +86,10 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--impl", default="auto",
                    choices=("auto", "jnp", "pallas", "fused"))
     r.add_argument("--sections", type=int, default=1,
-                   help="not supported here: row sections are a measured "
-                   "TPU rejection; N > 1 exits 2")
+                   help="render the frame in N halo-overlapped row "
+                   "sections, one after another (bounds peak device "
+                   "memory for huge frames; the result is the whole "
+                   "frame's)")
     r.add_argument("--debug-dump", metavar="PATH",
                    help="also dump the intermediate-buffer pyramid "
                    "(.npz file, or a zarr directory)")
@@ -403,11 +406,6 @@ def _cmd_render(a) -> int:
         return 2
     if a.server:
         return _cmd_render_remote(a)
-    if a.sections > 1:
-        print(f"error: --sections: row sections are a measured TPU "
-              f"rejection, not ported ({_ROADMAP_TPU}); render the whole "
-              "frame", file=sys.stderr)
-        return 2
     if a.autotune_cache:
         print(f"error: --autotune-cache: the scoped-VMEM budget is a TPU "
               f"compiler knob with no counterpart here ({_ROADMAP_TPU})",
@@ -436,7 +434,14 @@ def _cmd_render(a) -> int:
     color = _load_image(a.color)[0] if a.color else None
 
     eng = AmbientOcclusionEngine(camera, params, impl=a.impl, device=device)
-    if a.debug_dump:
+    if a.sections > 1:
+        if a.debug_dump:
+            print("error: --debug-dump needs the monolithic path (drop "
+                  "--sections)", file=sys.stderr)
+            return 2
+        ao = eng.render_sections(depth, a.sections, normals=normals,
+                                 color=color)
+    elif a.debug_dump:
         ao, dbg = eng.render(depth, normals=normals, color=color,
                              debug_outputs=True)
         from tpuao_torch.utils.debug_dump import dump_debug_buffers
@@ -471,8 +476,8 @@ def _cmd_render_sequence(a, device) -> int:
               "native codec); convert PNGs first or render per-frame",
               file=sys.stderr)
         return 2
-    if a.debug_dump:
-        print("error: --debug-dump needs single-frame mode",
+    if a.debug_dump or a.sections > 1:
+        print("error: --debug-dump/--sections need single-frame mode",
               file=sys.stderr)
         return 2
     matched = _match_streams(a, dpaths)

@@ -126,12 +126,14 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
             "is the plain ops) for gradients")
     h0, w0 = depth.shape[-2:]
     hp, wp = padded_shape(h0, w0)
-    depth = _pad_to_64(depth.to(torch.float32), hp, wp)
     use_n = normals is not None and params.use_normals
     d = params.hierarchy_depth
     render_level = _select_render_impl(impl)
 
-    linz = P.linearize_depth(depth, camera)
+    # the padded depth is not held past linearising: where it is a copy
+    # and the depth is hardware depth, it is a frame of its own
+    linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
+                             camera)
     # each level once as a dense array: the kernels read raw pointers
     pyr = [lvl.contiguous() for lvl in P.build_pyramid(linz, d)]
     nkw = [{} for _ in range(d + 1)]
@@ -540,6 +542,19 @@ class AmbientOcclusionEngine:
             halo_rows=halo_rows, normals=normals, color=color,
             out_dtype=self.out_dtype, debug_outputs=debug_outputs,
             device=self.device)
+
+    def render_sections(self, depth, n_sections: int = 2, normals=None,
+                        color=None, halo_rows: int | None = None):
+        """One large frame as sequential row sections on one device
+        through the engine: ``render_frame_sections`` with the engine's
+        camera, params, impl, ``out_dtype`` and device.  It equals
+        ``render_frame``'s result at about one section's peak memory."""
+        from tpuao_torch.parallel.sections import render_frame_sections
+
+        return render_frame_sections(
+            depth, self.camera, self._params, n_sections=n_sections,
+            halo_rows=halo_rows, impl=self.impl, normals=normals,
+            color=color, out_dtype=self.out_dtype, device=self.device)
 
     __call__ = render
 
