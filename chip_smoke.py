@@ -138,11 +138,27 @@ Phases, one or more lines each:
               the fused form raises); a 16K-class frame (8640 x 15360) at
               k = 1, 2, 4, 8 against its golden, k = 4 and 8 below the
               monolithic frame's peak memory; ``render --sections 4`` on
-              an 8K PFM bit-equal to ``render_frame_sections``.
+              an 8K PFM bit-equal to ``render_frame_sections``;
+19. tune   -- the tile rows of the tiled kernels (``utils/launch_opts``):
+              the render (depth-only, slopes, raw normals), the upsample
+              and the fused steps at every instance of their texels a
+              thread at every level of 1080p, 4K and 8K at one and four
+              frames a call, each bit-equal to the rule's output (the
+              rule's within its bound of the plain version), the Python
+              rule equal to the launcher's, a value with no instance
+              refused, graph-replay ms of each instance beside the rule's;
+              ``tune`` through the CLI (1080p at one and four frames,
+              1440p, 1080p with normals) into one cache, then a fresh
+              process rendering a 1440p PFM with ``--autotune-cache``,
+              bit-equal to the untuned render with its launches;
+              ``stage_times_ms`` of HIGH and ULTRA 1080p beside each
+              stage's bound and ``roofline.floors_ms``.
 
 Then a JSON line ``{"golden": [...], "crops": [...]}`` (each path's shape,
 max_abs_err and golden seconds), a JSON line ``{"sections": [...]}`` (each
 sections path's errors, peak memory and prediction, rows and times), a
+JSON line ``{"tile_rows": {...}}`` (phase 19's sweeps, tunes and stage
+times), a
 JSON line ``{"kernels": [...]}`` (each
 kernel's launches on its
 path, worst error, device time by graph replay as ``ms`` with the event
@@ -170,6 +186,9 @@ import sys
 import tempfile
 import time
 
+from tpuao_torch.utils.roofline import (WINDOWED_OPS, bound, chain_work,
+                                        launch_census, render_work)
+
 TOL = 1e-5  # kernel vs plain version, both float32 on the card
 RTOL_NULL_DEPTH = 1e-6  # history depth of a null history (1e6 in float32)
 SEED = 7
@@ -194,19 +213,18 @@ GOLDEN_SIZES = {"check": (270, 480), "720p": (720, 1280),
 SECTION_SIZES = {"1080p": (1080, 1920), "4K": (2160, 3840),
                  "8K": (4320, 7680),
                  "16K": (8640, 15360)}  # phase 18's frames
+TUNE_SIZES = {"1080p": (1080, 1920), "4K": (2160, 3840),
+              "8K": (4320, 7680)}  # phase 19a's frames
+TUNE_INVALID = {"render_ao_level": 3, "render_ao_level_normals": 2,
+                "blur_upsample_step": 4,
+                "fused_render_upsample_step": 4}  # no such instance
 PARENT_CSRC = "tpuao_torch/_build/parent_csrc"
 
 # The bound: the least time the card could take for a call's work, the
 # larger of its operations at the FP32 peak and its bytes (each input read
-# once, each output written once) at the HBM3 peak (NVIDIA H100 SXM data
-# sheet, 700 W).  Operations counted from the kernels' code: a depth-only
-# pair test is 23 FP32 operations (csrc/common.cuh), the tangent term 11
-# more; a texel adds ~6 (1/z, clamp, pow) or ~8; the noise filter and 2x
-# of a chain step ~153 a lo texel; the windowed resolve ~30 a texel.
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-CHAIN_OPS = 153
-WINDOWED_OPS = 30
+# once, each output written once) at the HBM3 peak; the peaks and the work
+# of each kernel (render_work, chain_work, WINDOWED_OPS) are
+# tpuao_torch.utils.roofline's.
 LIBRARY = ("windowed: torch.nn.functional.grid_sample(bilinear, border, "
            "align_corners=True) on the stacked history, timed as a "
            "yardstick and called nowhere in the port; the rest: none, no "
@@ -216,40 +234,6 @@ LIBRARY = ("windowed: torch.nn.functional.grid_sample(bilinear, border, "
 # [-1, 1] in float32 and back, which moves a coordinate by up to ~5e-4
 # texels at 8K; a texel's value moves by that times its neighbour's step
 TOL_LIBRARY = 2e-3
-
-
-def render_ops(npairs: int, tangent: bool = False) -> int:
-    return (34 if tangent else 23) * npairs + (8 if tangent else 6)
-
-
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(bound in ms, "operations" or "bytes")."""
-    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def render_work(shape, npairs=34, planes=0):
-    """Operations and bytes of one render call on (..., h, w); ``planes``
-    extra input planes (2 slopes, 3 raw normals; tangent term then)."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    return n * render_ops(npairs, planes > 0), 4 * n * (2 + planes)
-
-
-def chain_work(shape, h0, w0, npairs=0, lo_inputs=2, blend=False):
-    """Operations and bytes of one chain step from (..., lh, lw) to the
-    (h0, w0) crop: ``npairs`` > 0 renders the level too (the fused step);
-    ``lo_inputs`` lo planes read (depth and AO or c1, [+ pre-min])."""
-    *lead, lh, lw = (int(d) for d in shape)
-    b = 1
-    for d in lead:
-        b *= d
-    lo = b * lh * lw
-    ops = lo * (CHAIN_OPS + (render_ops(npairs) if npairs else 0))
-    nbytes = 4 * (lo * lo_inputs + 4 * lo * (2 if blend else 1) +
-                  b * h0 * w0)
-    return ops, nbytes
 
 
 def grid_sample_resolve(prev_ao, prev_d, ip, jp):
@@ -2437,6 +2421,288 @@ def phase_sections(chk, dev, K, F, card):
     return paths, records
 
 
+def tile_rule_c(lib, kernel, batch, h, w, h0, w0) -> int:
+    """The launcher's own texels a thread (csrc), for a launch of
+    ``kernel`` over ``batch`` levels of (h, w) cropped to (h0, w0)."""
+    if kernel == "render_ao_level":
+        return lib.tpuao_render_tile_rule(0, batch, h, w)
+    if kernel == "render_ao_level_normals":
+        return lib.tpuao_render_tile_rule(1, batch, h, w)
+    return lib.tpuao_chain_tile_rule(batch, h, w, h0, w0)
+
+
+def tile_cases(K, cam, par, pn, pyr, spyr, npyr, wp, h0, w0):
+    """Phase 19a's launches of one frame (batch): (kernel, Checks key,
+    label, (lh, lw), crop, call, plain call, tolerance) for the render at
+    levels 1-4 (depth-only, slopes, raw normals), the upsample steps 4->3
+    .. 1->0 (pre-min below the coarsest, the last cropped) and the fused
+    steps 3->2 .. 1->0, each on the combined AO the kernels make below
+    it."""
+    aos = {l: K.render_ao_level(pyr[l], l, wp, cam, par) for l in range(1, 5)}
+    up = {4: aos[4]}
+    for l in (4, 3, 2, 1):
+        up[l - 1] = K.blur_upsample_step(
+            up[l], pyr[l], pyr[l - 1], par, wp,
+            lo_ao2=None if l == 4 else aos[l],
+            crop_hw=(h0, w0) if l == 1 else None)
+    c = {3: up[3]}
+    for l in (3, 2):
+        c[l - 1] = K.fused_render_upsample_step(pyr[l], c[l], pyr[l - 1], l,
+                                                wp, cam, par)
+    cases = []
+    for l in range(1, 5):
+        d, lo = pyr[l], tuple(pyr[l].shape[-2:])
+        cases.append(("render_ao_level", "render", f"render l{l}", lo, None,
+                      lambda d=d, l=l: K.render_ao_level(d, l, wp, cam, par),
+                      lambda d=d, l=l: K.render_ao_level_plain(d, l, wp, cam,
+                                                               par),
+                      TOL_EXACT))
+        for mode, kw in (("slopes", {"slopes_ds": spyr[l]}),
+                         ("raw normals", {"normals_ds": npyr[l]})):
+            cases.append((
+                "render_ao_level_normals", "render_normals",
+                f"normals ({mode}) l{l}", lo, None,
+                lambda d=d, l=l, kw=kw: K.render_ao_level_normals(
+                    d, l, wp, cam, pn, **kw),
+                lambda d=d, l=l, kw=kw: K.render_ao_level_normals_plain(
+                    d, l, wp, cam, pn, **kw), TOL_EXACT))
+    for l in (4, 3, 2, 1):
+        crop = (h0, w0) if l == 1 else None
+        kw = {"lo_ao2": None if l == 4 else aos[l], "crop_hw": crop}
+        cases.append((
+            "blur_upsample_step", "upsample", f"upsample {l}->{l - 1}",
+            tuple(pyr[l].shape[-2:]), crop,
+            lambda l=l, kw=kw: K.blur_upsample_step(
+                up[l], pyr[l], pyr[l - 1], par, wp, **kw),
+            lambda l=l, kw=kw: K.blur_upsample_step_plain(
+                up[l], pyr[l], pyr[l - 1], par, wp, **kw), TOL))
+    for l in (3, 2, 1):
+        crop = (h0, w0) if l == 1 else None
+        cases.append((
+            "fused_render_upsample_step", "fused", f"fused {l}->{l - 1}",
+            tuple(pyr[l].shape[-2:]), crop,
+            lambda l=l, crop=crop: K.fused_render_upsample_step(
+                pyr[l], c[l], pyr[l - 1], l, wp, cam, par, crop_hw=crop),
+            lambda l=l, crop=crop: K.fused_render_upsample_step_plain(
+                pyr[l], c[l], pyr[l - 1], l, wp, cam, par, crop_hw=crop),
+            TOL))
+    return cases
+
+
+def tune_cli(argv) -> dict:
+    """``python -m tpuao_torch tune ...`` in-process; its JSON."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli(["tune", *argv])
+    return json.loads(buf.getvalue())
+
+
+def phase_tune(chk, dev, K, P, R, F, card, tmp):
+    """19. The tile rows of the tiled kernels (``utils/launch_opts``):
+    (a) the render (depth-only, and with normals in both modes), the
+    upsample and the fused steps at every instance of their texels a
+    thread, at every level of 1080p, 4K and 8K frames at one and four
+    frames a call: each output bit-equal to the rule's, the rule's within
+    its bound of the plain version, the Python rule equal to the
+    launcher's, a value with no instance refused by the table and by the
+    launcher, and the graph-replay ms of each instance beside the rule's;
+    (b) ``tune`` through the CLI (1080p at one and four frames, 1440p,
+    1080p with normals) into one cache file, then a fresh process
+    rendering a 1440p PFM with ``--autotune-cache``, bit-equal to the
+    untuned render with the same launches; (c) ``stage_times_ms`` of HIGH
+    and ULTRA 1080p, each stage beside its bound and the frame beside
+    ``roofline.floors_ms``.  Returns ({path: launch counts}, records)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.ops import _build
+    from tpuao_torch.params import AOParams, CameraParams
+    from tpuao_torch.utils import launch_opts as L
+    from tpuao_torch.utils import roofline
+    from tpuao_torch.utils.frameio import load_pfm, save_pfm
+    from tpuao_torch.utils.profiling import stage_times_ms
+    from tpuao_torch.utils.timing import cuda_graph_ms
+
+    lib = _build.load()
+    cam = CameraParams(depth_mode="linear")
+    par, pn = AOParams(), AOParams(use_normals=True)
+    L.clear_tuned_tiles()
+    records = {"sweep": [], "tune": [], "stages": {}}
+
+    # (a) every instance of every launch against the rule's output
+    print(f"tile rows (a): each instance against the rule, graph-replay "
+          f"device ms [{card}]:")
+    for size, (h0, w0) in TUNE_SIZES.items():
+        for batch in (1, 4):
+            pyr, spyr, npyr, wp = normals_pyramid(dev, P, R, F, cam, h0, w0,
+                                                  batch)
+            cases = tile_cases(K, cam, par, pn, pyr, spyr, npyr, wp, h0, w0)
+            for kernel, key, label, (lh, lw), crop, fn, plain, tol in cases:
+                h_out, w_out = crop or (2 * lh, 2 * lw)
+                rule = L.rule_nt(kernel, batch, lh, lw, h_out, w_out)
+                rule_c = tile_rule_c(lib, kernel, batch, lh, lw, h_out, w_out)
+                if rule != rule_c:
+                    raise RuntimeError(f"{size} x{batch} {label}: the Python "
+                                       f"rule says nt={rule}, the launcher's "
+                                       f"{rule_c}")
+                ref = fn()
+                chk.close(key, f"{size} x{batch} {label} rule vs plain", ref,
+                          plain(), tol=tol, quiet=True)
+                ms = {}
+                for nt in L.VALID_NT[kernel]:
+                    L.set_tuned_tiles(kernel, batch, lh, lw, nt)
+                    got = fn()
+                    if not torch.equal(got, ref):
+                        raise RuntimeError(
+                            f"{size} x{batch} {label}: nt={nt} differs from "
+                            f"the rule's output by "
+                            f"{float((got - ref).abs().max())}")
+                    ms[nt] = cuda_graph_ms(fn)
+                L.clear_tuned_tiles()
+                best = min(ms, key=ms.get)
+                print(f"  {size} x{batch} {label} ({lh}x{lw}): rule nt={rule};"
+                      f" " + ", ".join(f"nt={nt} {t:.4f}"
+                                       for nt, t in ms.items()) +
+                      f" ms; fastest nt={best}, rule / fastest "
+                      f"{ms[rule] / ms[best]:.3f}x [{card}]", flush=True)
+                records["sweep"].append({
+                    "size": size, "batch": batch, "launch": label,
+                    "kernel": kernel, "lo": [lh, lw], "rule": rule,
+                    "ms": {str(k): v for k, v in ms.items()}})
+            if (size, batch) == ("1080p", 1):
+                # a value with no instance: the table refuses it, and the
+                # launcher refuses it where it gets past the table
+                refused = set()
+                for kernel, _, label, (lh, lw), _, fn, _, _ in cases:
+                    if kernel in refused:
+                        continue
+                    bad = TUNE_INVALID[kernel]
+                    try:
+                        L.set_tuned_tiles(kernel, 1, lh, lw, bad)
+                    except ValueError:
+                        pass
+                    else:
+                        raise RuntimeError(f"set_tuned_tiles took {kernel} "
+                                           f"nt={bad}")
+                    L._TUNED[(kernel, 1, lh, lw)] = bad
+                    try:
+                        fn()
+                    except RuntimeError as e:
+                        if "CUDA error" not in str(e):
+                            raise
+                    else:
+                        raise RuntimeError(f"{label}: nt={bad} launched")
+                    finally:
+                        L.clear_tuned_tiles()
+                    refused.add(kernel)
+                print(f"  {sorted(refused)}: a value with no instance raises "
+                      f"(ValueError in the table, cudaErrorInvalidValue "
+                      f"from the launcher)", flush=True)
+            del pyr, spyr, npyr, cases
+            torch.cuda.empty_cache()
+
+    # (b) tune through the CLI into one cache, then a fresh process
+    cache = tmp / "autotune.json"
+    print(f"tile rows (b): tune through the CLI into {cache.name} [{card}]:")
+    for argv in (["1080x1920"], ["1080x1920", "--batch", "4"],
+                 ["1440x2560"], ["1080x1920", "--normals"]):
+        res = tune_cli([*argv, "--save", str(cache)])
+        for launch, sweep in res["sweep_ms"].items():
+            rule, best = res["default"][launch], res["best"][launch]
+            print(f"  tune {' '.join(argv)}: {launch}: rule nt={rule}; " +
+                  ", ".join(f"nt={nt} {t:.4f}" for nt, t in sweep.items()) +
+                  f" ms; tuned nt={best} [{card}]")
+        fm = res["frame_ms"]
+        gain = fm["default"] / fm["tuned"]
+        print(f"  tune {' '.join(argv)}: frame {fm['default']:.4f} ms at the "
+              f"rule, {fm['tuned']:.4f} ms tuned ({gain:.3f}x) [{card}]",
+              flush=True)
+        records["tune"].append({"argv": argv, **res})
+    saved = json.loads(cache.read_text())
+    keys = {(e["kernel"], e["batch"], e["h"], e["w"])
+            for e in saved["entries"]}
+    swept = {k for k in L._TUNED}
+    if saved["device_kind"] != torch.cuda.get_device_name() or keys != swept:
+        raise RuntimeError(f"{cache.name} holds {sorted(keys)} on "
+                           f"{saved['device_kind']!r}, the tuned table "
+                           f"{sorted(swept)}")
+    L.clear_tuned_tiles()
+    cam_hw = CameraParams()
+    z = F.to_hardware_depth(F.spheres_on_plane(1440, 2560, cam_hw, seed=SEED),
+                            cam_hw).astype(np.float32)
+    src, untuned, tuned = (str(tmp / n) for n in ("d1440.pfm", "u.pfm",
+                                                   "t.pfm"))
+    save_pfm(src, z)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with K.record_launches() as record:
+        run_cli(["render", src, untuned])
+    torch.cuda.synchronize()
+    want = K.launch_counts()
+    frame_keys = {launch.key for launch in record}
+    if not frame_keys <= keys:
+        raise RuntimeError(f"the 1440p render's launches "
+                           f"{sorted(frame_keys - keys)} are not in the cache")
+    code = ("import json, sys\n"
+            "from tpuao_torch import cli\n"
+            "from tpuao_torch.ops import kernels as K\n"
+            "from tpuao_torch.utils import launch_opts as L\n"
+            "rc = cli.main(sys.argv[1:])\n"
+            "print(json.dumps({'counts': K.launch_counts(), 'table': "
+            "len(L._TUNED)}))\n"
+            "sys.exit(rc)\n")
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "render", src, tuned,
+         "--autotune-cache", str(cache)], cwd=root, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root)})
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"render --autotune-cache: exit {proc.returncode}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    same = np.array_equal(load_pfm(tuned), load_pfm(untuned))
+    print(f"  fresh process: render 1440p --autotune-cache ({got['table']} "
+          f"entries loaded): launches {got['counts']}, bit-equal to the "
+          f"untuned render: {same}, {sec:.2f} s", flush=True)
+    if got["counts"] != want or not same or got["table"] != len(keys):
+        raise RuntimeError(f"the tuned 1440p render: {got}, untuned "
+                           f"launches {want}, bit-equal {same}")
+
+    # (c) stage times beside their bounds
+    print(f"stage times (c): graph-replay device ms, bound and share "
+          f"[{card}]:")
+    zn, nn = F.spheres_on_plane(1080, 1920, cam, seed=SEED, with_normals=True)
+    zt = torch.as_tensor(zn, dtype=torch.float32, device=dev)
+    nt_ = torch.as_tensor(nn, dtype=torch.float32, device=dev)
+    for name in ("HIGH", "ULTRA"):
+        p = preset(name)
+        st = stage_times_ms(zt, cam, p, normals=nt_ if p.use_normals else None)
+        work = roofline.stage_work(1080, 1920, p)
+        for stage, ms in st.items():
+            if stage == "full_pipeline":
+                ops = sum(o for o, _ in work.values())
+                fl = roofline.floors_ms(ms, 1080, 1920, ops=ops,
+                                        use_normals=p.use_normals)
+                print(f"  {name} {stage}: {ms:.4f} ms; floors_ms: memory "
+                      f"{fl['mem_floor_ms']:.4f}, operations "
+                      f"{fl['flop_floor_ms']:.4f}, {fl['pct_of_roofline']:.1f}"
+                      f"% of the roofline [{card}]")
+                records["stages"][name] = {"ms": st, "floors": fl}
+            else:
+                b_ms, b_by = roofline.bound(*work[stage])
+                print(f"  {name} {stage}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}), share {b_ms / ms:.1%} [{card}]")
+    return {"tuned 1440p render": got["counts"]}, records
+
+
 @contextlib.contextmanager
 def kernel_library(lib):
     """Every wrapper launches from ``lib`` (a library built from another
@@ -2707,25 +2973,11 @@ def parent_diff(libs, fn) -> float:
 
 def device_profile(fn, calls=20):
     """(device ms per call, {kernel: device ms over the calls}, kernels per
-    call): the kernels' own time, by torch.profiler over ``calls`` calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by, n = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = re.sub(r"^void |\(.*$|^(?:at::native::|tpuao::)", "",
-                          name)[:60]
-            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-            n += 1
+    call): the kernels' own time, by torch.profiler over ``calls`` calls
+    (``roofline.launch_census``)."""
+    census = launch_census(fn, calls)
+    by = {name: ms for name, (_, ms) in census.items()}
+    n = sum(k for k, _ in census.values())
     if n % calls:
         # every path here launches the same kernels each call: a count
         # that does not divide means the profiler dropped kernel records,
@@ -3026,10 +3278,16 @@ def main(argv=None) -> int:
 
     # 18: sequential sections on one card, asserting their counts
     section_paths, section_records = phase_sections(chk, dev, K, F, card)
+
+    # 19: the tile rows: every instance, tune and its cache, stage times
+    with tempfile.TemporaryDirectory() as tmp:
+        tune_paths, tune_records = phase_tune(chk, dev, K, P, R, F, card,
+                                              pathlib.Path(tmp))
     paths = {"frame": main_counts, "ultra engine": ultra_counts,
              "temporal": temporal_counts, "variants": variant_counts,
              "serving": serving_counts, **mesh_paths,
-             "autodiff": autodiff_counts, **spatial_paths, **section_paths}
+             "autodiff": autodiff_counts, **spatial_paths, **section_paths,
+             **tune_paths}
 
     # each kernel's launches come from its own path's main run: the depth-
     # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
@@ -3083,6 +3341,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{k['name']} never launched on its path")
     print(json.dumps({"golden": golden_records, "crops": golden_crops}))
     print(json.dumps({"sections": section_records}))
+    print(json.dumps({"tile_rows": tune_records}))
     print(json.dumps({"kernels": kernels}))
     print(_card())
     print(json.dumps({"ok": True, "device": {

@@ -75,8 +75,9 @@ def _close_files(a, b):
 
 
 def test_parser_flags_match_tpuao():
-    """The port's commands and flags are tpuao's, less ``tune``, plus
-    ``render --device``."""
+    """The port's commands and flags are tpuao's, plus ``render --device``
+    and ``tune --batch`` (a tuned launch's key holds its frames a
+    call)."""
     def flags(ap):
         sub = ap._subparsers._group_actions[0].choices
         return {name: sorted(o for act in p._actions
@@ -85,9 +86,10 @@ def test_parser_flags_match_tpuao():
                 for name, p in sub.items()}
 
     want = flags(JCLI._build_parser())
-    del want["tune"]
     want["render"] = sorted(want["render"][:-2] + ["--device"]) + \
         want["render"][-2:]
+    want["tune"] = sorted(want["tune"][:-1] + ["--batch"]) + \
+        want["tune"][-1:]
     assert flags(CLI._build_parser()) == want
 
 
@@ -269,17 +271,72 @@ def test_usage_errors_exit_like_tpuao(case, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["render", "d.pfm", "o.pfm", "--autotune-cache", "x.json"],
     ["render", "d.pfm", "o.pfm", "--server", "http://127.0.0.1:9",
-     "--device", "cpu"],
-    ["serve", "8080", "--autotune-cache", "x.json"]])
+     "--device", "cpu"]])
 def test_what_the_port_rejects_exits_2(argv, capsys):
-    """``--autotune-cache`` names the ROADMAP item that keeps it out;
-    ``--device`` is engine state to a remote render.  Nothing is read or
-    rendered before the exit."""
+    """``--device`` is engine state to a remote render.  Nothing is read
+    or rendered before the exit."""
     assert CLI.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err or "server-side" in err
+    assert "server-side" in capsys.readouterr().err
+
+
+def _tile_cache(tmp_path) -> str:
+    """A cache file of two tuned launches, as ``tune --save`` writes."""
+    from tpuao_torch.utils import autotune
+    from tpuao_torch.utils import launch_opts as L
+
+    L.clear_tuned_tiles()
+    L.set_tuned_tiles("render_ao_level", 1, 4, 8, 2)
+    L.set_tuned_tiles("fused_render_upsample_step", 1, 32, 64, 3)
+    path = autotune.save_tuned(str(tmp_path / "tiles.json"))
+    L.clear_tuned_tiles()
+    return path
+
+
+def test_render_autotune_cache_loads_the_table(tmp_path):
+    """``render --autotune-cache`` on ``--device cpu`` loads the cache
+    before the frame, and the frame is what it is without one (tile rows
+    change no result)."""
+    from tpuao_torch.utils import launch_opts as L
+
+    path = _tile_cache(tmp_path)
+    z, _ = _depth()
+    src, dst = str(tmp_path / "d.pfm"), str(tmp_path / "o.pfm")
+    save_pfm(src, z)
+    try:
+        assert CLI.main(["render", src, dst, "--depth-mode", "linear",
+                         "--device", "cpu", "--autotune-cache", path]) == 0
+        assert L._TUNED == {("render_ao_level", 1, 4, 8): 2,
+                            ("fused_render_upsample_step", 1, 32, 64): 3}
+    finally:
+        L.clear_tuned_tiles()
+    np.testing.assert_array_equal(load_pfm(dst), render_frame(
+        z, CameraParams(depth_mode="linear"), device="cpu").numpy())
+
+
+def test_serve_autotune_cache_loads_the_table(tmp_path, monkeypatch,
+                                              capsys):
+    """``serve --autotune-cache`` reaches the server's parser, which loads
+    the cache and says how many entries before it builds the server."""
+    from tpuao_torch import serving
+    from tpuao_torch.utils import launch_opts as L
+
+    class Built(Exception):
+        pass
+
+    def fake(port, engine=None, **kw):
+        assert len(L._TUNED) == 2  # loaded first
+        raise Built
+
+    path = _tile_cache(tmp_path)
+    monkeypatch.setattr(serving, "make_server", fake)
+    try:
+        with pytest.raises(Built):
+            CLI.main(["serve", "0", "--device", "cpu", "--autotune-cache",
+                      path])
+    finally:
+        L.clear_tuned_tiles()
+    assert "autotune cache: 2 entries" in capsys.readouterr().out
 
 
 def test_render_sections_matches_tpuao(tmp_path):

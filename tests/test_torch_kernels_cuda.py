@@ -745,3 +745,127 @@ def test_sections_1080p_equal_the_monolithic_frame(dev, k):
     assert torch.equal(got, want)
     assert torch.equal(render_frame_sections_fused(z, CAM, n_sections=k),
                        want)
+
+
+def _tile_call(dev, kernel, lh, lw, batch):
+    """A launch of ``kernel`` over ``batch`` levels of (lh, lw) (the lo
+    level of a chain step, cropped by one texel each way), as a call."""
+    lead = (batch,) if batch > 1 else ()
+    z = uniform(dev, lead + (lh, lw), 0.05, 1.0, 40)
+    w_full = 4 * lw
+    if kernel == "render_ao_level":
+        return lambda: K.render_ao_level(z, 1, w_full, CAM, AOParams())
+    if kernel == "render_ao_level_normals":
+        g = uniform(dev, lead + (lh, lw), -0.02, 0.02, 41)
+        pn = AOParams(use_normals=True)
+        return lambda: K.render_ao_level_normals(z, 1, w_full, CAM, pn,
+                                                 slopes_ds=(g, g))
+    c = uniform(dev, lead + (lh, lw), 0.3, 1.0, 42)
+    hi = uniform(dev, lead + (2 * lh, 2 * lw), 0.05, 1.0, 43)
+    crop = (2 * lh - 1, 2 * lw - 1)
+    if kernel == "blur_upsample_step":
+        return lambda: K.blur_upsample_step(c, z, hi, AOParams(), w_full,
+                                            lo_ao2=c, crop_hw=crop)
+    return lambda: K.fused_render_upsample_step(z, c, hi, 1, w_full, CAM,
+                                                AOParams(), crop_hw=crop)
+
+
+TILE_CASES = [(kernel, nt) for kernel, nts in
+              {"render_ao_level": (4, 2, 1),
+               "render_ao_level_normals": (1,),
+               "blur_upsample_step": (3, 2, 1),
+               "fused_render_upsample_step": (3, 2, 1)}.items()
+              for nt in nts]
+
+
+@pytest.mark.parametrize("kernel,nt", TILE_CASES)
+def test_every_tile_rows_instance_bit_equal_to_the_rule(dev, kernel, nt):
+    """Each kernel at each texels-a-thread instance (``launch_opts``),
+    forced through the table, equals its output at the launcher's rule
+    bit for bit: at level 1 of 1080p (544 x 960) and at an odd 37 x 50
+    level, one frame and three; the table's entry is exactly the launch's
+    key."""
+    from tpuao_torch.utils import launch_opts as L
+
+    L.clear_tuned_tiles()
+    try:
+        for lh, lw, batch in ((544, 960, 1), (37, 50, 1), (37, 50, 3)):
+            call = _tile_call(dev, kernel, lh, lw, batch)
+            want = call()
+            L.set_tuned_tiles(kernel, batch, lh, lw, nt)
+            assert L.tile_rows(kernel, batch, lh, lw) == nt
+            close(call(), want, 0.0)
+            L.clear_tuned_tiles()
+    finally:
+        L.clear_tuned_tiles()
+
+
+@pytest.mark.parametrize("kernel,bad", [
+    ("render_ao_level", 3), ("render_ao_level", 5),
+    ("render_ao_level_normals", 2), ("blur_upsample_step", 4),
+    ("fused_render_upsample_step", 4), ("fused_render_upsample_step", -1)])
+def test_a_tile_rows_value_with_no_instance_raises(dev, kernel, bad):
+    """The table refuses a value the kernel has no instance for, and the
+    launcher refuses one that gets past it (cudaErrorInvalidValue): no
+    launch falls back to the rule."""
+    from tpuao_torch.utils import launch_opts as L
+
+    call = _tile_call(dev, kernel, 37, 50, 1)
+    with pytest.raises(ValueError, match="no instance"):
+        L.set_tuned_tiles(kernel, 1, 37, 50, bad)
+    L._TUNED[(kernel, 1, 37, 50)] = bad
+    try:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            call()
+    finally:
+        L.clear_tuned_tiles()
+
+
+def test_tile_rule_equals_the_launchers(dev):
+    """``launch_opts.rule_nt`` is the launchers' own rule (csrc's
+    ``render_rule_nt`` and ``chain_nt``) at the HIGH and ULTRA launches of
+    1080p, 4K and 8K at one and four frames."""
+    from tpuao_torch.ops import _build
+    from tpuao_torch.utils import launch_opts as L
+
+    lib = _build.load()
+    for h0, w0 in ((1080, 1920), (2160, 3840), (4320, 7680), (100, 150)):
+        hp, wp = (-(-h0 // 64) * 64, -(-w0 // 64) * 64)
+        for batch in (1, 4):
+            for l in range(1, 5):
+                h, w = hp >> l, wp >> l
+                crop = (h0, w0) if l == 1 else (2 * h, 2 * w)
+                assert L.rule_nt("render_ao_level", batch, h, w) == \
+                    lib.tpuao_render_tile_rule(0, batch, h, w)
+                assert L.rule_nt("render_ao_level_normals", batch, h, w) == \
+                    lib.tpuao_render_tile_rule(2, batch, h, w) == 1
+                assert L.rule_nt("blur_upsample_step", batch, h, w,
+                                 *crop) == \
+                    lib.tpuao_chain_tile_rule(batch, h, w, *crop)
+
+
+def test_launch_census_and_stage_times_read_the_device(dev):
+    """``roofline.launch_census`` finds the HIGH frame's AO kernels by
+    name with their device time (the profiler may drop records on a busy
+    host, so at most, not exactly, 5 calls' launches), and
+    ``profiling.stage_times_ms`` times every stage by graph replay."""
+    from tpuao_torch.utils.profiling import stage_times_ms
+    from tpuao_torch.utils.roofline import launch_census
+
+    z = torch.as_tensor(F.spheres_on_plane(270, 480, CAM, seed=5),
+                        dtype=torch.float32, device=dev)
+    census = launch_census(lambda: render_frame(z, CAM), calls=5)
+    for prefix, per_call in (("::render_kernel<", 1),
+                             ("::upsample_kernel<", 1),
+                             ("::fused_step_kernel<", 3)):
+        got = [v for k, v in census.items() if prefix in k]
+        assert got, (prefix, sorted(census))
+        n = sum(c for c, _ in got)
+        assert 0 < n <= 5 * per_call
+        assert all(ms > 0 for _, ms in got)
+    st = stage_times_ms(z, CAM, preset("ULTRA"),
+                        normals=torch.as_tensor(F.spheres_on_plane(
+                            270, 480, CAM, seed=5, with_normals=True)[1],
+                            dtype=torch.float32, device=dev))
+    assert list(st)[0] == "prepare" and list(st)[-1] == "full_pipeline"
+    assert len(st) == 10 and all(ms > 0 for ms in st.values())

@@ -229,6 +229,8 @@ def test_import_loads_no_jax():
         "import tpuao_torch.parallel.spatial, tpuao_torch.parallel.grid\n"
         "import tpuao_torch.parallel.sections\n"
         "import tpuao_torch.golden, tpuao_torch.golden.temporal\n"
+        "import tpuao_torch.utils.roofline, tpuao_torch.utils.launch_opts\n"
+        "import tpuao_torch.utils.autotune, tpuao_torch.utils.profiling\n"
         "sys.argv = ['tpuao_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('tpuao_torch', run_name='__main__')\n"
@@ -386,3 +388,118 @@ def test_chip_smoke_chain_work_counts():
                          lo_inputs=3)[1] // 4 == 4 * 22_917_120
     assert cs.chain_work((hp4 // 2, wp4 // 2), 2160, 3840,
                          lo_inputs=3)[1] // 4 == 22_917_120
+
+
+# The roofline (tpuao_torch/utils/roofline.py): tpuao's byte model, copied,
+# and the H100's peaks.
+
+ROOFLINE_CASES = [(h, w, d, n, b) for h, w in ((1080, 1920), (100, 150),
+                                               (64, 64), (4320, 7680))
+                  for d in (1, 2, 3, 4) for n in (False, True)
+                  for b in (True, False)]
+
+
+@pytest.mark.parametrize("h,w,depth,use_normals,blur", ROOFLINE_CASES)
+def test_roofline_byte_model_equals_tpuao(h, w, depth, use_normals, blur):
+    """``stage_traffic_bytes`` and ``min_traffic_bytes`` equal tpuao's on
+    every shape, depth, normals and blur setting, with and without
+    single_scale, at 4 and 2 bytes a texel."""
+    from tpuao.utils import roofline as JR
+
+    from tpuao_torch.utils import roofline as TR
+
+    for single_scale in (False, True):
+        for dtype_bytes in (4, 2):
+            kw = {"depth_levels": depth, "use_normals": use_normals,
+                  "enable_blur": blur, "single_scale": single_scale,
+                  "dtype_bytes": dtype_bytes}
+            assert TR.stage_traffic_bytes(h, w, **kw) == \
+                JR.stage_traffic_bytes(h, w, **kw)
+            assert TR.min_traffic_bytes(h, w, **kw) == \
+                JR.min_traffic_bytes(h, w, **kw)
+
+
+def test_roofline_floors_keys_and_peaks():
+    """``floors_ms`` gives tpuao's keys against the H100's peaks (3.35
+    TB/s, 67 TFLOP/s FP32): the memory floor alone without operations,
+    the larger of the two with them."""
+    from tpuao.utils import roofline as JR
+
+    from tpuao_torch.utils import roofline as TR
+
+    assert (TR.PEAK_BYTES, TR.PEAK_FLOPS) == (3.35e12, 67e12)
+    for name in ("HBM_GBPS_ACHIEVED", "KERNEL_FIXED_MS", "entry_census"):
+        assert not hasattr(TR, name)  # TPU-measured or XLA-only
+    want = set(JR.floors_ms(1.0, 1080, 1920, flops=1e9))
+    got = TR.floors_ms(0.1, 1080, 1920, ops=1e9)
+    assert set(got) == want == {"mem_floor_ms", "flop_floor_ms", "floor_ms",
+                                "pct_of_roofline"}
+    mem = TR.min_traffic_bytes(1080, 1920) / 3.35e12 * 1e3
+    assert got["mem_floor_ms"] == pytest.approx(mem)
+    assert got["flop_floor_ms"] == pytest.approx(1e9 / 67e12 * 1e3)
+    assert got["floor_ms"] == max(mem, got["flop_floor_ms"])
+    assert got["pct_of_roofline"] == pytest.approx(100 * mem / 0.1)
+    assert set(TR.floors_ms(0.1, 1080, 1920)) == {
+        "mem_floor_ms", "floor_ms", "pct_of_roofline"}
+
+
+def test_roofline_work_gives_the_kernel_tables_bounds():
+    """The per-kernel work moved out of chip_smoke.py gives the bounds of
+    PERF.md's kernel table (phase 12, printed to 4 places): the render at
+    level 1 of 1080p, 4K and 8K and level 4 of 1080p, the normals render
+    at levels 1-4 of four 1080p frames, the ULTRA chain of four steps at
+    four frames, the fused steps 3->2 .. 1->0, the windowed resolve at
+    1080p; chip_smoke imports these very functions."""
+    from tpuao_torch.utils import roofline as TR
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for name in ("bound", "render_work", "chain_work", "WINDOWED_OPS"):
+        assert getattr(cs, name) is getattr(TR, name)
+
+    def ms(work):
+        b_ms, by = TR.bound(*work)
+        return round(b_ms, 4), by
+
+    hp, wp = TP.padded_shape(1080, 1920)
+    lv = [(hp >> l, wp >> l) for l in range(5)]
+    assert ms(TR.render_work(lv[1])) == (0.0061, "operations")
+    assert ms(TR.render_work(lv[4])) == (0.0001, "operations")
+    assert ms(TR.render_work((1088, 1920))) == (0.0246, "operations")
+    assert ms(TR.render_work((2176, 3840))) == (0.0983, "operations")
+    normals = [TR.render_work((4,) + lv[l], planes=2) for l in range(1, 5)]
+    assert ms(tuple(map(sum, zip(*normals)))) == (0.0482, "operations")
+    chain = [TR.chain_work((4,) + lv[l], *((1080, 1920) if l == 1 else
+                                           lv[l - 1]),
+                           lo_inputs=2 if l == 4 else 3) for l in (4, 3, 2, 1)]
+    assert ms(tuple(map(sum, zip(*chain)))) == (0.0363, "bytes")
+    fused = [TR.chain_work(lv[l], *((1080, 1920) if l == 1 else lv[l - 1]),
+                           npairs=34) for l in (3, 2, 1)]
+    assert ms(tuple(map(sum, zip(*fused)))) == (0.0096, "operations")
+    assert ms((1080 * 1920 * TR.WINDOWED_OPS, 4 * 6 * 1080 * 1920)) == \
+        (0.0149, "bytes")
+
+
+def test_roofline_stage_work_keys_are_the_stage_profiles():
+    """``stage_work`` has ``stage_times_ms``'s stages but the whole
+    pipeline, each with the work of the kernel that times it."""
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.utils import roofline as TR
+
+    for name in ("VERY_LOW", "HIGH", "ULTRA"):
+        p = preset(name)
+        d = p.hierarchy_depth
+        work = TR.stage_work(1080, 1920, p)
+        assert list(work) == ["prepare"] + [f"render_l{l}" for l in
+                                            range(1, d + 1)] + \
+            [f"upsample_l{l}" for l in range(d, 0, -1)]
+        hp, wp = TP.padded_shape(1080, 1920)
+        assert work["render_l1"] == TR.render_work(
+            (1, hp // 2, wp // 2), 34 if p.exhaustive else 10,
+            planes=2 if p.use_normals else 0)
+        assert work["upsample_l1"] == TR.chain_work(
+            (1, hp // 2, wp // 2), 1080, 1920, lo_inputs=2 if d == 1 else 3)
+    assert TR.stage_work(1080, 1920, preset("HIGH"), batch=4)["prepare"] == \
+        (0.0, 4 * TR.stage_traffic_bytes(1088, 1920)["prepare"])

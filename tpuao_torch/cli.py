@@ -5,6 +5,8 @@ codes), rendering on the card unless ``--device cpu``:
 
   info    torch / CUDA / device report (JSON)
   render  depth image(s) in -> AO image(s) out, every tunable as a flag
+  tune    sweep the tile rows of one frame shape's launches on the card
+          (``utils/autotune``), optionally merged into a JSON cache
   serve   start the HTTP endpoint (``tpuao_torch.serving``)
 
 ``render`` speaks PFM natively (``utils/frameio``: 1-channel 'Pf' depth,
@@ -13,13 +15,16 @@ grayscale input PNG is normalised linear depth in [0, 1] (``--depth-mode
 linear`` is implied unless overridden), and a ``.png`` output is the AO
 buffer as 8-bit grayscale.
 
-What the JAX package's CLI has and this one rejects (exit 2): ``tune``
-and ``--autotune-cache`` (the TPU's scoped-VMEM budget).  ``render
---sections N`` renders one frame in N row sections, one after another
-(``tpuao_torch.parallel.sections``): the frame's result at a bounded
-peak device memory.  ``serve --views N`` serves over a mesh of N devices
-(N CPU entries with ``--device cpu``).  With no card and no ``--device
-cpu``, ``render`` exits 1: nothing falls back to the CPU unasked.
+Where the JAX package tunes its scoped-VMEM budget, ``tune`` times the
+texels a thread of each kernel launch (``utils/launch_opts``), and
+``render``/``serve --autotune-cache PATH`` load what it saved; ``tune``
+also takes ``--batch N`` (the launch's frames are part of its key).
+``render --sections N`` renders one frame in N row sections, one after
+another (``tpuao_torch.parallel.sections``): the frame's result at a
+bounded peak device memory.  ``serve --views N`` serves over a mesh of N
+devices (N CPU entries with ``--device cpu``).  With no card and no
+``--device cpu``, ``render`` exits 1, and ``tune`` always does: nothing
+falls back to the CPU unasked.
 """
 
 from __future__ import annotations
@@ -32,8 +37,6 @@ import sys
 import numpy as np
 
 from tpuao_torch.params import PARAM_RANGES
-
-_ROADMAP_TPU = "ROADMAP queue 1 item 3"
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -116,8 +119,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    "1 = half-res level-1 resolve")
 
     r.add_argument("--autotune-cache", metavar="PATH",
-                   help="not supported here: the scoped-VMEM budget is a "
-                   "TPU compiler knob; exits 2")
+                   help="load per-launch tile rows tuned by `tpuao_torch "
+                   "tune --save PATH` before rendering")
     r.add_argument("--server", metavar="URL",
                    help="render remotely via a running `serve` endpoint "
                    "(thin client, tpuao_torch.client: no local device is "
@@ -126,6 +129,23 @@ def _build_parser() -> argparse.ArgumentParser:
                    "(--config/--preset/--impl/--sections/--debug-dump/"
                    "--autotune-cache/--device) are rejected; --depth-mode "
                    "is checked against the server's engine (GET /config)")
+
+    t = sub.add_parser("tune", help="sweep the tile rows of one frame "
+                       "shape's kernel launches (on the card)")
+    t.add_argument("shape", help="frame shape HxW, e.g. 1440x2560")
+    t.add_argument("--normals", action="store_true",
+                   help="tune the normals-weighted program (its launches "
+                   "are other kernels)")
+    t.add_argument("--impl", default="auto",
+                   choices=("auto", "pallas", "fused"))
+    t.add_argument("--batch", type=int, default=1,
+                   help="frames a call (part of each launch's key)")
+    t.add_argument("--candidates", metavar="NT,NT,...",
+                   help="texels a thread to sweep (default: every instance "
+                   "each kernel has: render 4,2,1, normals 1, chain steps "
+                   "3,2,1)")
+    t.add_argument("--save", metavar="PATH",
+                   help="merge the winners into this JSON cache file")
 
     # never parsed: main() hands a "serve" argv to _cmd_serve as it is; this
     # subparser exists for --help and for flag parity with the JAX CLI
@@ -406,11 +426,6 @@ def _cmd_render(a) -> int:
         return 2
     if a.server:
         return _cmd_render_remote(a)
-    if a.autotune_cache:
-        print(f"error: --autotune-cache: the scoped-VMEM budget is a TPU "
-              f"compiler knob with no counterpart here ({_ROADMAP_TPU})",
-              file=sys.stderr)
-        return 2
     from tpuao_torch.models.pipeline import resolve_device
 
     try:
@@ -420,6 +435,10 @@ def _cmd_render(a) -> int:
               "here; pass --device cpu to render on the CPU",
               file=sys.stderr)
         return 1
+    if a.autotune_cache:
+        from tpuao_torch.utils import autotune
+
+        autotune.load_tuned(a.autotune_cache)
     if _is_glob(a.input):
         return _cmd_render_sequence(a, device)
     from tpuao_torch.models.pipeline import AmbientOcclusionEngine
@@ -555,21 +574,57 @@ def _render_sequence_temporal(a, dpaths, streams, camera, params,
     return 0
 
 
+def _cmd_tune(a) -> int:
+    """Sweep the launches of one frame shape on the card and print the
+    ``tune_frame`` dict; ``--save`` merges the winners into a cache file
+    (the other launches' entries are kept), refusing one tuned on another
+    device kind."""
+    from tpuao_torch.utils import autotune
+
+    try:
+        h, w = (int(v) for v in a.shape.lower().split("x"))
+    except ValueError:
+        print(f"error: shape must be HxW, got {a.shape!r}", file=sys.stderr)
+        return 2
+    target = autotune.sweep_target()
+    if target is None:
+        print("error: tune times the kernels on the card and there is no "
+              "CUDA device here (the API takes a timer: "
+              "utils.autotune.tune_frame(..., timer=...))", file=sys.stderr)
+        return 1
+    if a.save and os.path.exists(a.save):
+        with open(a.save) as f:
+            prior = json.load(f)
+        if (prior.get("entries") and prior.get("device_kind") not in (
+                autotune.device_kind(), "unknown", None)):
+            # refusing beats silently deleting another card's measured
+            # values: save_tuned rewrites the file with this process's
+            print(f"error: {a.save} was tuned on "
+                  f"{prior.get('device_kind')!r}, this host is "
+                  f"{autotune.device_kind()!r}; use a separate cache file "
+                  "per device kind", file=sys.stderr)
+            return 2
+        # merge: the file's entries stand for the other launches; this
+        # frame's launches are swept anew and take the fresh values
+        autotune.load_tuned(a.save)
+    candidates = (tuple(int(v) for v in a.candidates.split(","))
+                  if a.candidates else None)
+    device, timer = target
+    res = autotune.tune_frame((h, w), use_normals=a.normals, impl=a.impl,
+                              batch=a.batch, candidates=candidates,
+                              timer=timer, device=device)
+    if a.save:
+        res["saved"] = autotune.save_tuned(a.save)
+    print(json.dumps(res, indent=2))
+    return 0
+
+
 def _cmd_serve(a) -> int:
     """``tpuao_torch.serving.main`` with the pass-through arguments
-    (``--views N`` included: a mesh of N devices); the JAX package's
-    ``--autotune-cache`` is rejected."""
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--autotune-cache")
-    known, rest = ap.parse_known_args(a.args)
-    if known.autotune_cache:
-        print(f"error: --autotune-cache: the scoped-VMEM budget is a TPU "
-              f"compiler knob with no counterpart here ({_ROADMAP_TPU})",
-              file=sys.stderr)
-        return 2
+    (``--views N``: a mesh of N devices; ``--autotune-cache PATH``)."""
     from tpuao_torch import serving
 
-    serving.main(rest)
+    serving.main(a.args)
     return 0
 
 
@@ -583,7 +638,7 @@ def main(argv=None) -> int:
         a = _build_parser().parse_args(argv)
     try:
         return {"info": _cmd_info, "render": _cmd_render,
-                "serve": _cmd_serve}[a.cmd](a)
+                "tune": _cmd_tune, "serve": _cmd_serve}[a.cmd](a)
     except ValueError as e:
         # validation errors (param/camera ranges, bad config values) exit
         # like every other usage error: message + status 2, no trace

@@ -114,6 +114,10 @@ inline int chain_nt(const ChainArgs& a, int batch) {
   return 1;
 }
 
+// Whether a tiled chain launch may take `nt` texels a thread: 0 (chain_nt)
+// or an instance that exists (3, 2, 1).
+inline bool chain_nt_ok(int nt) { return nt >= 0 && nt <= 3; }
+
 // Whether 8-byte copies of texel pairs may be used: hi rows start on
 // even texels (2lw texels a row, 4*lh*lw a plane), so only the base
 // pointer's alignment decides.

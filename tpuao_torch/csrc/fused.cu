@@ -29,7 +29,8 @@
 // threads: each thread writes two adjacent hi texels of one hi row, so
 // the output writes stay coalesced, and the (h0, w0) crop is applied
 // here.  The level's AO never reaches device memory.  NT is 3 on large
-// grids, else 2 or 1 (chain_step.cuh's chain_nt); at 3 the tiles take
+// grids, else 2 or 1 (chain_step.cuh's chain_nt), unless the launch's nt
+// argument forces one (utils/launch_opts.py); at 3 the tiles take
 // 67 KB (dynamic shared memory, opted in).  The filter and 2x stages
 // round their 31 reciprocals and divisions a lo texel as IEEE does,
 // without a branch (chain_step.cuh).
@@ -148,11 +149,12 @@ cudaError_t launch_fused_nt(const ChainArgs& a, const PairTable& pt,
   return cudaGetLastError();
 }
 
-// Texels a thread by waves (chain_step.cuh's chain_nt).
+// Texels a thread: `nt`, or by waves where it is 0 (chain_step.cuh's
+// chain_nt).
 template <int NP>
 cudaError_t launch_fused(const ChainArgs& a, const PairTable& pt, int batch,
-                         int vec, int device, cudaStream_t s) {
-  switch (chain_nt(a, batch)) {
+                         int vec, int nt, int device, cudaStream_t s) {
+  switch (nt ? nt : chain_nt(a, batch)) {
     case 3: return launch_fused_nt<NP, 3>(a, pt, batch, vec, device, s);
     case 2: return launch_fused_nt<NP, 2>(a, pt, batch, vec, device, s);
     default: return launch_fused_nt<NP, 1>(a, pt, batch, vec, device, s);
@@ -163,15 +165,17 @@ cudaError_t launch_fused(const ChainArgs& a, const PairTable& pt, int batch,
 
 // ds, c1: (batch, lh, lw); hi_d: (batch, 2lh, 2lw); out: (batch, h0, w0),
 // all float32 on the device; pairs: host array of npairs tpuao::Pair of
-// this level.  Returns the launch's cudaError_t.
+// this level; nt: texels a thread (3, 2 or 1), 0 for the rule (chain_nt).
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for an nt with
+// no instance).
 extern "C" int tpuao_fused_render_upsample_step(
     const float* ds, const float* c1, const float* hi_d, float* out,
     int batch, int lh, int lw, int h0, int w0, const void* pairs, int npairs,
     float falloff, float strength, float k_blur, float k_up, float nfs,
-    int device, void* stream) {
+    int nt, int device, void* stream) {
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || lh < 4 || lw < 4 || h0 < 1 || w0 < 1 ||
-      h0 > 2 * lh || w0 > 2 * lw)
+      h0 > 2 * lh || w0 > 2 * lw || !chain_nt_ok(nt))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);
@@ -182,6 +186,6 @@ extern "C" int tpuao_fused_render_upsample_step(
                     k_blur, k_up, nfs, falloff, strength};
   const int vec = vec4_ok(ds, lw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (npairs == 34) return launch_fused<34>(a, pt, batch, vec, device, s);
-  return launch_fused<10>(a, pt, batch, vec, device, s);
+  if (npairs == 34) return launch_fused<34>(a, pt, batch, vec, nt, device, s);
+  return launch_fused<10>(a, pt, batch, vec, nt, device, s);
 }

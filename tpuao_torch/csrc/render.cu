@@ -29,8 +29,9 @@
 // work, took 56-128 registers and measured slower: warps in flight count
 // for more here.  NT is 4 depth-only where that still gives every SM a
 // block, else 2 or 1 (small levels); 1 with normals, which measured
-// fastest.  The per-texel slopes or normals are read once, coalesced,
-// while the tile lands.  The tunables, the per-level inv_r / m2 (the
+// fastest; a launch's nt argument (utils/launch_opts.py's table, swept by
+// utils/autotune.py) forces an instance.  The per-texel slopes or normals
+// are read once, coalesced, while the tile lands.  The tunables, the per-level inv_r / m2 (the
 // __grid_constant__ pair table) and the normals path's off_scale /
 // texel_scale are runtime data, so nothing rebuilds when they change.
 //
@@ -120,19 +121,34 @@ inline long render_blocks(int batch, int h, int w, int nt) {
          ((h + rows - 1) / rows) * batch;
 }
 
-// Texels a thread: depth-only the most of 4, 2, 1 that still gives every
-// SM a block (fewer halo rows staged a texel); with the tangent term 1,
-// which measured faster than 2 or 4 (PERF.md).
+// Texels a thread by the rule: depth-only the most of 4, 2, 1 that still
+// gives every SM a block (fewer halo rows staged a texel); with the
+// tangent term 1, which measured faster than 2 or 4 (PERF.md).
+inline int render_rule_nt(int mode, int batch, int h, int w) {
+  if (mode != kDepthOnly) return 1;
+  if (render_blocks(batch, h, w, 4) >= 132) return 4;
+  if (render_blocks(batch, h, w, 2) >= 132) return 2;
+  return 1;
+}
+
+// Whether a launch may take `nt` texels a thread: 0 (the rule), or an
+// instance that exists (4, 2, 1 depth-only; 1 with the tangent term).
+inline bool render_nt_ok(int mode, int nt) {
+  return nt == 0 || nt == 1 || (mode == kDepthOnly && (nt == 2 || nt == 4));
+}
+
+// nt: texels a thread, 0 for the rule; render_nt_ok has checked it.
 template <int NP, int MODE>
 void launch_render_np(const float* z, const float* a, const float* b,
                       float* out, int batch, int h, int w,
                       const PairTable& pt, float falloff, float strength,
-                      float scale, int vec, cudaStream_t s) {
+                      float scale, int vec, int nt, cudaStream_t s) {
+  if (nt == 0) nt = render_rule_nt(MODE, batch, h, w);
   if constexpr (MODE == kDepthOnly) {
-    if (render_blocks(batch, h, w, 4) >= 132)
+    if (nt == 4)
       return launch_render_nt<NP, MODE, 4>(z, a, b, out, batch, h, w, pt,
                                            falloff, strength, scale, vec, s);
-    if (render_blocks(batch, h, w, 2) >= 132)
+    if (nt == 2)
       return launch_render_nt<NP, MODE, 2>(z, a, b, out, batch, h, w, pt,
                                            falloff, strength, scale, vec, s);
   }
@@ -144,10 +160,11 @@ template <int MODE>
 cudaError_t launch_render(const float* z, const float* a, const float* b,
                           float* out, int batch, int h, int w,
                           const void* pairs, const float* m2, int npairs,
-                          float falloff, float strength, float scale,
+                          float falloff, float strength, float scale, int nt,
                           int device, void* stream) {
   if (batch < 1 || batch > 65535 || h < 4 || w < 4 ||
-      (h + kRenderThreadRows - 1) / kRenderThreadRows > 65535)
+      (h + kRenderThreadRows - 1) / kRenderThreadRows > 65535 ||
+      !render_nt_ok(MODE, nt))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, m2, npairs, pt);
@@ -158,10 +175,10 @@ cudaError_t launch_render(const float* z, const float* a, const float* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npairs == 34)
     launch_render_np<34, MODE>(z, a, b, out, batch, h, w, pt, falloff,
-                               strength, scale, vec, s);
+                               strength, scale, vec, nt, s);
   else
     launch_render_np<10, MODE>(z, a, b, out, batch, h, w, pt, falloff,
-                               strength, scale, vec, s);
+                               strength, scale, vec, nt, s);
   return cudaGetLastError();
 }
 
@@ -174,37 +191,46 @@ const char* tpuao_error_string(int err) {
 }
 
 // z, out: (batch, h, w) float32 on the device; pairs: host array of
-// npairs tpuao::Pair of this level.  Returns the launch's cudaError_t.
+// npairs tpuao::Pair of this level; nt: texels a thread (4, 2 or 1), 0 for
+// the rule (render_rule_nt).  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for an nt with no instance).
 int tpuao_render_ao_level(const float* z, float* out, int batch, int h, int w,
                           const void* pairs, int npairs, float falloff,
-                          float strength, int device, void* stream) {
+                          float strength, int nt, int device, void* stream) {
   using namespace tpuao;
   return launch_render<kDepthOnly>(z, nullptr, nullptr, out, batch, h, w,
                                    pairs, nullptr, npairs, falloff, strength,
-                                   0.0f, device, stream);
+                                   0.0f, nt, device, stream);
 }
 
 // The normals path.  mode 1 (slopes): a, b = g_x, g_y (batch, h, w),
 // scale = off_scale; mode 2 (raw normals): a = (batch, 3, h, w)
 // channel-first normals, b unused, scale = texel_scale.  m2: host array of
-// npairs floats.  Returns the launch's cudaError_t.
+// npairs floats.  nt: 1, or 0 for the rule (1).  Returns the launch's
+// cudaError_t.
 int tpuao_render_ao_level_normals(const float* z, const float* a,
                                   const float* b, float* out, int batch,
                                   int h, int w, const void* pairs,
                                   const float* m2, int npairs, float falloff,
                                   float strength, float scale, int mode,
-                                  int device, void* stream) {
+                                  int nt, int device, void* stream) {
   using namespace tpuao;
   if (m2 == nullptr) return cudaErrorInvalidValue;
   if (mode == kSlopes)
     return launch_render<kSlopes>(z, a, b, out, batch, h, w, pairs, m2,
-                                  npairs, falloff, strength, scale, device,
-                                  stream);
+                                  npairs, falloff, strength, scale, nt,
+                                  device, stream);
   if (mode == kNormals)
     return launch_render<kNormals>(z, a, nullptr, out, batch, h, w, pairs,
-                                   m2, npairs, falloff, strength, scale,
+                                   m2, npairs, falloff, strength, scale, nt,
                                    device, stream);
   return cudaErrorInvalidValue;
+}
+
+// The rule's texels a thread for a launch over (batch, h, w): mode 0
+// depth-only, 1 or 2 with the tangent term (render_rule_nt).
+int tpuao_render_tile_rule(int mode, int batch, int h, int w) {
+  return tpuao::render_rule_nt(mode, batch, h, w);
 }
 
 }  // extern "C"

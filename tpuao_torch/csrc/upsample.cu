@@ -22,7 +22,8 @@
 // adjacent hi texels as one 8-byte store, so a warp writes one contiguous
 // run of the row.  The (h0, w0) crop is applied here.  NT is 3 on large
 // grids, else 2 or 1 (chain_step.cuh's chain_nt), so that the small
-// levels still spread over the SMs; at NT = 3 with pre-min and blend the
+// levels still spread over the SMs, unless the launch's nt argument
+// forces one (utils/launch_opts.py); at NT = 3 with pre-min and blend the
 // block takes 65 KB (dynamic shared memory, opted in), three blocks an SM.
 //
 // Measured: PERF.md (chip_smoke.py phase 12); no spill at 36-40
@@ -119,29 +120,31 @@ cudaError_t launch_upsample_nt(const ChainArgs& a, int batch, int device,
 }
 
 template <bool kMin, bool kBlend>
-cudaError_t launch_upsample(const ChainArgs& a, int batch, int device,
-                            cudaStream_t s) {
-  switch (chain_nt(a, batch)) {
+cudaError_t launch_upsample(const ChainArgs& a, int batch, int nt,
+                            int device, cudaStream_t s) {
+  switch (nt ? nt : chain_nt(a, batch)) {
     case 3: return launch_upsample_nt<3, kMin, kBlend>(a, batch, device, s);
     case 2: return launch_upsample_nt<2, kMin, kBlend>(a, batch, device, s);
     default: return launch_upsample_nt<1, kMin, kBlend>(a, batch, device, s);
   }
 }
 
-// Launches one upsample step over `batch` frames; returns the cudaError_t.
-inline cudaError_t launch_chain_step(const ChainArgs& a, int batch,
+// Launches one upsample step over `batch` frames at `nt` texels a thread
+// (0: chain_nt); returns the cudaError_t.
+inline cudaError_t launch_chain_step(const ChainArgs& a, int batch, int nt,
                                      int device, void* stream) {
   if (batch < 1 || batch > 65535 || a.lh < 1 || a.lw < 1 || a.h0 < 1 ||
-      a.w0 < 1 || a.h0 > 2 * a.lh || a.w0 > 2 * a.lw)
+      a.w0 < 1 || a.h0 > 2 * a.lh || a.w0 > 2 * a.lw || !chain_nt_ok(nt))
     return cudaErrorInvalidValue;
   const DeviceScope scope(device);
   if (scope.status() != cudaSuccess) return scope.status();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pre_min = a.lo_ao2 != nullptr, blend = a.hi_blend != nullptr;
-  if (pre_min && blend) return launch_upsample<true, true>(a, batch, device, s);
-  if (pre_min) return launch_upsample<true, false>(a, batch, device, s);
-  if (blend) return launch_upsample<false, true>(a, batch, device, s);
-  return launch_upsample<false, false>(a, batch, device, s);
+  if (pre_min && blend)
+    return launch_upsample<true, true>(a, batch, nt, device, s);
+  if (pre_min) return launch_upsample<true, false>(a, batch, nt, device, s);
+  if (blend) return launch_upsample<false, true>(a, batch, nt, device, s);
+  return launch_upsample<false, false>(a, batch, nt, device, s);
 }
 
 }  // namespace tpuao
@@ -151,9 +154,20 @@ extern "C" int tpuao_blur_upsample_step(const float* lo_ao, const float* lo_ao2,
                                         const float* hi_blend, float* out,
                                         int batch, int lh, int lw, int h0,
                                         int w0, float k_blur, float k_up,
-                                        float nfs, int device, void* stream) {
+                                        float nfs, int nt, int device,
+                                        void* stream) {
   using namespace tpuao;
   const ChainArgs a{lo_ao, lo_ao2, lo_d, hi_d, hi_blend, out, lh, lw, h0, w0,
                     k_blur, k_up, nfs, 0.0f, 0.0f};
-  return launch_chain_step(a, batch, device, stream);
+  return launch_chain_step(a, batch, nt, device, stream);
+}
+
+// The rule's texels a thread (chain_nt) for a chain step from (lh, lw) to
+// the (h0, w0) crop over `batch` frames: the upsample and fused steps'.
+extern "C" int tpuao_chain_tile_rule(int batch, int lh, int lw, int h0,
+                                     int w0) {
+  using namespace tpuao;
+  const ChainArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    lh, lw, h0, w0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return chain_nt(a, batch);
 }

@@ -39,19 +39,20 @@ LINK_FLAGS = ("-shared", "-Xlinker", "-Bsymbolic")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# Every entry point returns a cudaError_t; pointers, the host pair table (of
-# one level) and the stream are c_void_p, sizes c_int, tunables c_float
-# (without argtypes ctypes would pass a Python float as a double).
+# Every launching entry point returns a cudaError_t; pointers, the host pair
+# table (of one level) and the stream are c_void_p, sizes c_int, tunables
+# c_float (without argtypes ctypes would pass a Python float as a double).
+# The two rules return texels a thread.
 SIGNATURES = {
     "tpuao_render_ao_level": (
-        _P, _P, _I, _I, _I, _P, _I, _F, _F, _I, _P),
+        _P, _P, _I, _I, _I, _P, _I, _F, _F, _I, _I, _P),
     "tpuao_render_ao_level_normals": (
-        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _F, _I, _I, _P),
+        _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _F, _F, _I, _I, _I, _P),
     "tpuao_blur_upsample_step": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
     "tpuao_fused_render_upsample_step": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
-        _F, _F, _F, _F, _F, _I, _P),
+        _F, _F, _F, _F, _F, _I, _I, _P),
     "tpuao_windowed_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpuao_render_ao_level_dma": (
         _P, _P, _I, _I, _I, _I, _P, _I, _F, _F, _I, _P),
@@ -59,7 +60,14 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
         _F, _F, _F, _F, _F, _I, _P),
     "tpuao_check_division": (_P, _I, _P),
+    "tpuao_render_tile_rule": (_I, _I, _I, _I),
+    "tpuao_chain_tile_rule": (_I, _I, _I, _I, _I),
 }
+# The entry points whose launches take texels a thread (``nt``, the argument
+# before ``device``; utils/launch_opts.py).  An older tree's library, which
+# has no ``tpuao_chain_tile_rule``, has them without it (``takes_nt``).
+NT_ENTRIES = ("tpuao_render_ao_level", "tpuao_render_ao_level_normals",
+              "tpuao_blur_upsample_step", "tpuao_fused_render_upsample_step")
 
 
 def find_nvcc() -> str:
@@ -145,12 +153,16 @@ def build(csrc: pathlib.Path = CSRC) -> pathlib.Path:
 @functools.lru_cache(maxsize=None)
 def load(csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types (an
-    older tree's library may lack the newer entry points)."""
+    older tree's library may lack the newer entry points, and its launches
+    may take no ``nt``: ``lib.takes_nt``)."""
     lib = ctypes.CDLL(str(build(csrc)))
     own = pathlib.Path(csrc).resolve() == CSRC
+    lib.takes_nt = own or hasattr(lib, "tpuao_chain_tile_rule")
     for name, argtypes in SIGNATURES.items():
         if not own and not hasattr(lib, name):
             continue
+        if name in NT_ENTRIES and not lib.takes_nt:
+            argtypes = argtypes[:-3] + argtypes[-2:]
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

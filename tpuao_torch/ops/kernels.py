@@ -14,6 +14,11 @@ Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
 * a launch count, ``wrapper.launches``, a plain integer that the wrapper
   adds one to where it launches its kernel and nowhere else.
 
+The render, upsample and fused wrappers pass each launch's texels a thread
+from ``utils/launch_opts.tile_rows`` (0: the launcher's own rule), and
+``record_launches`` lists the launches a program makes, with a call that
+repeats each one on its inputs (``utils/autotune.tune_frame`` sweeps them).
+
 The wrappers take float32, C-contiguous tensors whose leading dimensions
 (a batch) agree; the batch becomes the kernels' ``blockIdx.z``.  The
 windowed resolve takes single (h, w) planes: the temporal path is one
@@ -22,7 +27,10 @@ sequence per call.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -32,6 +40,7 @@ from tpuao_torch.ops import temporal as T
 from tpuao_torch.ops import upsample as U
 from tpuao_torch.params import (PARAM_RANGES, AOParams, sphere_radius_coef,
                                 upsample_constants)
+from tpuao_torch.utils import launch_opts as L
 
 # One tap pair as the kernels read it (tpuao::Pair in csrc/common.cuh).
 _PAIR_DTYPE = np.dtype([("dx", np.int32), ("dy", np.int32),
@@ -118,11 +127,61 @@ def _ptr(x: torch.Tensor | None):
 
 def _launch(entry: str, *args) -> None:
     """Call one C entry point (building the library at first use); raise
-    if the launch returned a CUDA error."""
+    if the launch returned a CUDA error (an ``nt`` with no instance
+    among them)."""
     from tpuao_torch.ops import _build
 
     lib = _build.load()
+    if entry in _build.NT_ENTRIES and not lib.takes_nt:
+        # an older tree's kernels, timed beside these: their rule only
+        if args[-3]:
+            raise RuntimeError(f"{entry}: this library's launches take no "
+                               "tile rows")
+        args = args[:-3] + args[-2:]
     _build.check(lib, getattr(lib, entry)(*args), entry)
+
+
+class Launch(NamedTuple):
+    """One launch of a tiled kernel, as ``record_launches`` lists it."""
+    kernel: str  # its wrapper's name, launch_opts' kernel key
+    batch: int
+    h: int  # the level the kernel reads (the lo level of a chain step)
+    w: int
+    rule: int  # the launcher's own texels a thread (launch_opts.rule_nt)
+    call: Callable[[], object]  # the wrapper call again, on the same inputs
+
+    @property
+    def key(self) -> tuple[str, int, int, int]:
+        return self.kernel, self.batch, self.h, self.w
+
+
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, every call of the render, upsample and fused
+    wrappers appends its ``Launch`` to the list this yields -- on a CPU
+    tensor too, where the wrapper runs its plain version: the launch the
+    card would make.  The launch counts are untouched."""
+    global _RECORD
+    prior, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prior
+
+
+def _tiles(kernel: str, x: torch.Tensor, h: int, w: int, call,
+           h0: int | None = None, w0: int | None = None) -> int:
+    """Texels a thread for this launch of ``kernel`` over ``x``'s batch of
+    (h, w) levels (``launch_opts.tile_rows``; 0 is the launcher's rule),
+    noted for ``record_launches`` with ``call``, which repeats it."""
+    batch = math.prod(x.shape[:-2])
+    if _RECORD is not None:
+        _RECORD.append(Launch(kernel, batch, h, w,
+                              L.rule_nt(kernel, batch, h, w, h0, w0), call))
+    return L.tile_rows(kernel, batch, h, w)
 
 
 def _stream(device: torch.device) -> int:
@@ -155,18 +214,20 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
                                        normals_ds=normals_ds,
                                        slopes_ds=slopes_ds)
     _check("ds", ds)
+    h, w = ds.shape[-2:]
+    nt = _tiles("render_ao_level", ds, h, w, lambda: render_ao_level(
+        ds, level, full_width, camera, params))
     if ds.device.type == "cpu":
         return render_ao_level_plain(ds, level, full_width, camera, params)
     _check_no_grad("render_ao_level", (ds,), params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
-    h, w = ds.shape[-2:]
     _check_level(h, w)
     table = _level_table(params, level, full_width, camera)
     out = torch.empty_like(ds)
     _launch("tpuao_render_ao_level", ds.data_ptr(), out.data_ptr(),
             _batch(lead), h, w, table.ctypes.data, len(table),
-            float(params.rejection_falloff), float(params.strength),
+            float(params.rejection_falloff), float(params.strength), nt,
             ds.device.index, _stream(ds.device))
     render_ao_level.launches += 1
     return out
@@ -321,6 +382,11 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
     if not params.use_normals:
         raise ValueError("render_ao_level_normals needs params.use_normals")
     _check("ds", ds)
+    h, w = ds.shape[-2:]
+    nt = _tiles("render_ao_level_normals", ds, h, w,
+                lambda: render_ao_level_normals(
+                    ds, level, full_width, camera, params,
+                    normals_ds=normals_ds, slopes_ds=slopes_ds))
     if ds.device.type == "cpu":
         return render_ao_level_normals_plain(
             ds, level, full_width, camera, params, normals_ds=normals_ds,
@@ -329,7 +395,6 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
                    (ds, normals_ds, *(slopes_ds or ())), params)
     lead = tuple(ds.shape[:-2])
     _check_kernel_input("ds", ds, ds.device, lead)
-    h, w = ds.shape[-2:]
     _check_level(h, w)
     if slopes_ds is not None:
         a, b = slopes_ds
@@ -359,7 +424,7 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
     _launch("tpuao_render_ao_level_normals", ds.data_ptr(), a.data_ptr(),
             _ptr(b), out.data_ptr(), _batch(lead), h, w, table.ctypes.data,
             m2.ctypes.data, len(table), float(params.rejection_falloff),
-            float(params.strength), float(scale), mode, ds.device.index,
+            float(params.strength), float(scale), mode, nt, ds.device.index,
             _stream(ds.device))
     render_ao_level_normals.launches += 1
     if mode == 2:
@@ -399,6 +464,10 @@ def blur_upsample_step(lo_ao: torch.Tensor, lo_d: torch.Tensor,
             raise ValueError(f"{name}: spatial shape {tuple(x.shape[-2:])}, "
                              f"expected {hw}")
     h0, w0 = _crop(crop_hw, 2 * lh, 2 * lw)
+    nt = _tiles("blur_upsample_step", lo_d, lh, lw,
+                lambda: blur_upsample_step(
+                    lo_ao, lo_d, hi_d, params, full_width, lo_ao2=lo_ao2,
+                    hi_ao_blend=hi_ao_blend, crop_hw=crop_hw), h0, w0)
     if lo_d.device.type == "cpu":
         return blur_upsample_step_plain(lo_ao, lo_d, hi_d, params, full_width,
                                         lo_ao2=lo_ao2, hi_ao_blend=hi_ao_blend,
@@ -413,7 +482,8 @@ def blur_upsample_step(lo_ao: torch.Tensor, lo_d: torch.Tensor,
     _launch("tpuao_blur_upsample_step", lo_ao.data_ptr(), _ptr(lo_ao2),
             lo_d.data_ptr(), hi_d.data_ptr(), _ptr(hi_ao_blend),
             out.data_ptr(), _batch(lead), lh, lw, h0, w0, float(k_blur),
-            float(k_up), float(nfs), lo_d.device.index, _stream(lo_d.device))
+            float(k_up), float(nfs), nt, lo_d.device.index,
+            _stream(lo_d.device))
     blur_upsample_step.launches += 1
     return out
 
@@ -453,10 +523,12 @@ def _check_fused(ds, c1, hi_d, crop_hw) -> tuple[int, int, int, int]:
 
 
 def _fused_launch(entry: str, dims, ds, c1, hi_d, level: int,
-                  full_width: int, camera, params, *extra) -> torch.Tensor:
+                  full_width: int, camera, params, *extra,
+                  nt: int | None = None) -> torch.Tensor:
     """Launch one of the fused entry points on CUDA tensors; ``dims`` is
     ``_check_fused``'s, ``extra`` goes between the sizes and the pair table
-    (the zero-copy step's R)."""
+    (the zero-copy step's R), ``nt`` before the device (the tiled fused
+    step's texels a thread)."""
     lh, lw, h0, w0 = dims
     _check_no_grad(entry, (ds, c1, hi_d), params)
     lead = tuple(ds.shape[:-2])
@@ -472,7 +544,8 @@ def _fused_launch(entry: str, dims, ds, c1, hi_d, level: int,
             out.data_ptr(), _batch(lead), lh, lw, h0, w0, *extra,
             table.ctypes.data, len(table), float(params.rejection_falloff),
             float(params.strength), float(k_blur), float(k_up), float(nfs),
-            ds.device.index, _stream(ds.device))
+            *(() if nt is None else (nt,)), ds.device.index,
+            _stream(ds.device))
     return out
 
 
@@ -485,11 +558,16 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
     (..., 2lh, 2lw); the level's AO never reaches device memory.  Kernel
     ``csrc/fused.cu``."""
     dims = _check_fused(ds, c1, hi_d, crop_hw)
+    lh, lw, h0, w0 = dims
+    nt = _tiles("fused_render_upsample_step", ds, lh, lw,
+                lambda: fused_render_upsample_step(
+                    ds, c1, hi_d, level, full_width, camera, params,
+                    crop_hw=crop_hw), h0, w0)
     if ds.device.type == "cpu":
         return fused_render_upsample_step_plain(
             ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
     out = _fused_launch("tpuao_fused_render_upsample_step", dims, ds, c1,
-                        hi_d, level, full_width, camera, params)
+                        hi_d, level, full_width, camera, params, nt=nt)
     fused_render_upsample_step.launches += 1
     return out
 

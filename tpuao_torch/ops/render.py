@@ -129,8 +129,10 @@ def slope_planes(normals: torch.Tensor, tan_half_fov_h, full_width: int):
     ts0 = 2.0 * tan_half_fov_h / full_width
     n_z = torch.clamp(n_z.to(torch.float32), min=0.05)
     # a tensor numerator: Python-scalar / tensor is reciprocal-then-
-    # multiply in torch, one rounding more than the JAX package's divide
-    grad = n_z.new_tensor(ts0) / n_z
+    # multiply in torch, one rounding more than the JAX package's divide;
+    # a 0-d CPU one, which reaches the card as a kernel argument and not as
+    # a copy, so that a CUDA graph can capture the normals path
+    grad = torch.tensor(ts0, dtype=torch.float32) / n_z
     return n_x.to(torch.float32) * grad, n_y.to(torch.float32) * grad
 
 

@@ -631,6 +631,9 @@ def build_parser():
                     help="shard each batch flush over an N-device view "
                     "mesh (fleet serving; implies --batch N): cuda:0.."
                     "cuda:N-1, or N CPU entries with --device cpu")
+    ap.add_argument("--autotune-cache", metavar="PATH",
+                    help="load per-launch tile rows saved by `tpuao_torch "
+                    "tune --save` (same flag as `tpuao_torch render`)")
     return ap
 
 
@@ -653,6 +656,10 @@ def main(argv=None) -> None:
     a = ap.parse_args(argv)
     if a.warmup_buffers and not a.warmup:
         ap.error("--warmup-buffers needs --warmup HxW")
+    if a.autotune_cache:
+        from tpuao_torch.utils.autotune import load_tuned
+
+        print(f"autotune cache: {load_tuned(a.autotune_cache)} entries")
     eng = AmbientOcclusionEngine.from_config(a.config) if a.config else None
     mesh = mesh_of(a.views, a.device)
     srv = make_server(a.port, eng, verbose=True, batch_size=a.batch,
