@@ -1,0 +1,189 @@
+"""One run of one cell: find its files by name, run its traffic, judge its
+outputs against the plain reference, read its metrics, make the result.
+
+Everything that belongs to one cell, configuration, traffic kind or metric
+is a file of its own, found by the names in the root ``BENCHMARK.json``:
+
+* ``workloads/<cell>.json``: the traffic's parameters, its ``kind`` and the
+  limits of the check;
+* ``configs/<config>.json``: the frame size, camera, tunables and path;
+* ``traffic/<kind>.py``: ``run(ctx) -> record``;
+* ``metrics/<metric>.py``: ``read(record) -> value or None``.
+
+The record a traffic module returns holds what the readers read, the
+host outputs it sampled in the window under
+``samples`` (``[(pool index, AO array)]``) and the pool of inputs under
+``pool`` (``(depth (F, H, W), normals or None)``).  Record keys read by
+the metric readers: ``setup_s``, ``window_s``, ``frames``,
+``call_latencies_s``, ``peak_window_bytes``; in a traced run
+``host_issue_s`` and ``profile`` (``profiling.summarize`` with
+``frames``); and ``config`` and ``frame_shape``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import pathlib
+import sys
+from dataclasses import dataclass, field
+
+AOB = pathlib.Path(__file__).resolve().parent
+ROOT = AOB.parent
+# Top-level module names that must not be loaded where the result is made
+FORBIDDEN = ("jax", "jaxlib", "flax", "tpuao")
+
+
+def load_json(path: pathlib.Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def spec() -> dict:
+    return load_json(ROOT / "BENCHMARK.json")
+
+
+def load_module(path: pathlib.Path):
+    """A module of the benchmark loaded from its file (names may hold
+    dots, as metric names do)."""
+    name = "aobench_" + path.parent.name + "_" + path.stem.replace(".", "_")
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+@dataclass
+class Context:
+    """What a traffic module is given."""
+
+    cell: str
+    workload: dict
+    config: dict
+    seed: int
+    seconds: float
+    trace: bool
+    device: str
+    t0: float  # perf_counter at the start of the process's work
+    shape: tuple[int, int] | None = None  # overrides the config's (tests)
+    notes: list = field(default_factory=list)  # lines for standard error
+
+    @property
+    def frame_shape(self) -> tuple[int, int]:
+        if self.shape is not None:
+            return self.shape
+        return (self.config["frame"]["height"], self.config["frame"]["width"])
+
+
+def load_cell(name: str, bench: dict | None = None):
+    """``(cell entry, workload file, config file)`` of a cell that
+    BENCHMARK.json (or ``bench``) lists."""
+    bench = bench or spec()
+    cells = {c["name"]: c for c in bench["workloads"]}
+    if name not in cells:
+        raise ValueError(f"no cell {name!r} in BENCHMARK.json "
+                         f"(cells: {', '.join(cells)})")
+    cell = cells[name]
+    workload = load_json(AOB / "workloads" / f"{name}.json")
+    config = load_json(AOB / "configs" / f"{cell['config']}.json")
+    return cell, workload, config
+
+
+def metrics_for(bench: dict, cell: str, trace: bool) -> list[dict]:
+    """The cell's end-to-end metrics (``trace`` False) or per-layer ones:
+    those that list the cell under ``workloads``, or list no cells."""
+    group = bench["per_layer" if trace else "end_to_end"]
+    return [m for m in group if cell in m.get("workloads", [cell])]
+
+
+def judge(samples, pool, config: dict, limit: float, device: str) -> dict:
+    """The check: every sampled output against the plain reference of its
+    input, by the widest absolute gap, in float64 on ``device``.  A sample
+    that never came back (``None``) or holds a value that is not finite
+    fails the check by a count of its own."""
+    import math
+
+    import torch
+
+    from aobench.reference import golden
+    from aobench.reference.params import from_config
+
+    params, camera = from_config(config)
+    depth, normals = pool
+    refs, worst, missing, nonfinite = {}, 0.0, 0, 0
+    for idx, out in samples:
+        if out is None:
+            missing += 1
+            continue
+        if idx not in refs:
+            refs[idx] = golden.render_frame(
+                depth[idx].to(device), camera, params,
+                None if normals is None else normals[idx].to(device))
+        got = torch.as_tensor(out).to(device=device, dtype=torch.float64)
+        if got.shape != refs[idx].shape:
+            missing += 1
+            continue
+        gap = float((got - refs[idx]).abs().max())
+        if math.isfinite(gap):
+            worst = max(worst, gap)
+        else:
+            nonfinite += 1
+    return {"max_abs_err": {"value": worst, "limit": limit},
+            "samples": {"value": len(samples) - missing - nonfinite,
+                        "limit": 1},
+            "missing": {"value": missing, "limit": 0},
+            "nonfinite": {"value": nonfinite, "limit": 0}}
+
+
+def correct_of(check: dict) -> bool:
+    """Every number within its limit: the gap at most its limit, at least
+    ``limit`` samples judged, no sample missing or not finite."""
+    return (check["max_abs_err"]["value"] <= check["max_abs_err"]["limit"]
+            and check["samples"]["value"] >= check["samples"]["limit"]
+            and check["missing"]["value"] <= check["missing"]["limit"]
+            and check["nonfinite"]["value"] <= check["nonfinite"]["limit"])
+
+
+def forbidden_modules() -> list[str]:
+    """Loaded modules whose top-level name is one of ``FORBIDDEN``,
+    compared whole (``tpuao_torch`` is not ``tpuao``)."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def run_cell(name: str, seed: int, seconds: float, trace: bool,
+             device: str = "cuda", t0: float | None = None,
+             shape=None) -> tuple[dict, list[str]]:
+    """Run one cell once: ``(result, lines for standard error)``.  The
+    result holds ``correct``, ``attempted``, ``failed``, ``metrics``,
+    ``device``, with ``trace`` ``breakdown``, and ``check`` last."""
+    import time
+
+    t0 = time.perf_counter() if t0 is None else t0
+    bench = spec()
+    cell, workload, config = load_cell(name, bench)
+    ctx = Context(cell=name, workload=workload, config=config, seed=seed,
+                  seconds=seconds, trace=trace, device=device, t0=t0,
+                  shape=None if shape is None else tuple(shape))
+    traffic = load_module(AOB / "traffic" / f"{workload['kind']}.py")
+    rec = traffic.run(ctx)
+    rec.setdefault("config", config)
+    rec.setdefault("frame_shape", ctx.frame_shape)
+    check = judge(rec.pop("samples"), rec.pop("pool"), config,
+                  workload["check"]["max_abs_err"], device)
+    metrics = {}
+    for m in metrics_for(bench, name, trace):
+        value = load_module(AOB / "metrics" / f"{m['name']}.py").read(rec)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    result = {"correct": correct_of(check), "attempted": rec["attempted"],
+              "failed": rec["failed"], "metrics": metrics,
+              "device": rec["device"]}
+    if trace and "profile" in rec:
+        from aobench.profiling import breakdown
+
+        result["breakdown"] = breakdown(rec["profile"])
+    result["check"] = check
+    lines = list(ctx.notes)
+    lines += [f"check {k} {v['value']!r} limit {v['limit']!r}"
+              for k, v in check.items()]
+    return result, lines
