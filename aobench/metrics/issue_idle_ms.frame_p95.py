@@ -1,0 +1,10 @@
+"""``issue_idle_ms.frame_p95``: ``issue_idle_ms.frame``, read the same
+way, in a cell whose end-to-end time of a frame is its tail,
+``frame_ms_p95``."""
+
+import pathlib
+
+from aobench.harness import load_module
+
+read = load_module(
+    pathlib.Path(__file__).with_name("issue_idle_ms.frame.py")).read

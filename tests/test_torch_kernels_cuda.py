@@ -869,3 +869,45 @@ def test_launch_census_and_stage_times_read_the_device(dev):
                             dtype=torch.float32, device=dev))
     assert list(st)[0] == "prepare" and list(st)[-1] == "full_pipeline"
     assert len(st) == 10 and all(ms > 0 for ms in st.values())
+
+
+@pytest.mark.parametrize("case", ["HIGH", "HIGH_pallas", "ULTRA", "rig"])
+def test_trace_launch_spans_equal_the_launch_counts(dev, case):
+    """Each stage span's ``ao_launch`` children are the launches its
+    wrapper counted, and tracing does not change a bit of the output."""
+    from tpuao_torch.parallel.sharding import render_views_sharded
+    from tpuao_torch.utils import trace
+
+    d, n = normals_scene(dev, batch=8 if case == "rig" else 2)
+    par = preset("ULTRA" if case == "ULTRA" else "HIGH")
+    impl = "pallas" if case == "HIGH_pallas" else "auto"
+    n = n if case == "ULTRA" else None
+
+    def run():
+        if case == "rig":
+            return render_views_sharded(d, CAM, par, impl=impl)
+        return render_frame(d, CAM, par, normals=n, impl=impl)
+
+    off = run()
+    K.reset_launch_counts()
+    trace.enable()
+    try:
+        on = run()
+    finally:
+        trace.disable()
+        rec = trace.take()
+    assert torch.equal(on, off) and rec["dropped"] == 0
+    spans = rec["spans"]
+    by_stage: dict[str, int] = {}
+    for r in spans:
+        if r.name == "ao_launch":
+            stage = spans[r.parent].name.rstrip("0123456789")
+            by_stage[stage] = by_stage.get(stage, 0) + 1
+    got = K.launch_counts()
+    assert by_stage == {k: v for k, v in {
+        "ao_render_l": (got["render_ao_level"]
+                        + got["render_ao_level_normals"]),
+        "ao_upsample_l": got["blur_upsample_step"],
+        "ao_fused_l": got["fused_render_upsample_step"]}.items() if v}
+    assert sum(by_stage.values()) == sum(got.values()) == {
+        "HIGH": 5, "HIGH_pallas": 8, "ULTRA": 8, "rig": 5}[case]

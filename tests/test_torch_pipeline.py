@@ -20,6 +20,7 @@ from tpuao.utils import fixtures as JF
 from tpuao_torch import AOParams, CameraParams, render_frame
 from tpuao_torch.models import pipeline as TPL
 from tpuao_torch.ops import kernels as K
+from tpuao_torch.utils import trace
 
 TOL = 1e-5   # float32 port vs float32 JAX package
 GTOL = 1e-4  # float32 port vs float64 golden
@@ -296,3 +297,168 @@ def test_tensor_input_stays_on_its_device():
     t = torch.as_tensor(z)
     out = render_frame(t, cam, AOParams(), device=torch.device("meta"))
     assert out.device == t.device
+
+
+# -- spans and counters (tpuao_torch.utils.trace) -----------------------------
+
+
+@pytest.fixture
+def traced():
+    """Tracing on for the test, off and emptied after it."""
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.take()
+
+
+def test_trace_spans_nest_and_share_their_entry_call(traced):
+    with trace.span("a", frames=2):
+        with trace.span("b"):
+            with trace.span("c"):
+                pass
+        with trace.span("d"):
+            pass
+    with trace.span("e"):
+        pass
+    rec = trace.take()
+    spans = rec["spans"]
+    assert [r.name for r in spans] == list("abcde")
+    assert [r.parent for r in spans] == [-1, 0, 1, 0, -1]
+    assert [r.frames for r in spans] == [2, 0, 0, 0, 0]
+    assert all(r.start_ns <= r.end_ns for r in spans)
+    assert spans[0].start_ns <= spans[1].start_ns <= spans[2].start_ns
+    assert spans[2].end_ns <= spans[1].end_ns <= spans[3].start_ns
+    assert rec["dropped"] == 0 and trace.take()["spans"] == []
+
+
+def test_trace_take_leaves_an_open_span_out(traced):
+    """A span open across ``take()`` writes no end into the next list,
+    and the spans opened inside it after the take have no parent."""
+    with trace.span("open"):
+        with trace.span("before"):
+            pass
+        first = trace.take()["spans"]
+        with trace.span("x"):
+            with trace.span("y"):
+                pass
+    with trace.span("z"):
+        pass
+    assert [(r.name, r.end_ns) for r in first] == [
+        ("open", 0), ("before", first[1].end_ns)]
+    spans = trace.take()["spans"]
+    assert [(r.name, r.parent) for r in spans] == [
+        ("x", -1), ("y", 0), ("z", -1)]
+    assert all(r.end_ns >= r.start_ns > 0 for r in spans)
+    assert spans[1].end_ns <= spans[0].end_ns <= spans[2].start_ns
+
+
+def test_trace_self_time_is_the_duration_less_its_children(traced):
+    R = trace.Record
+    spans = [R("a", 0, 100, -1, 1), R("b", 10, 30, 0, 0),
+             R("c", 40, 60, 0, 0), R("d", 45, 50, 2, 0),
+             R("e", 200, 210, -1, 1)]
+    assert trace.self_ns(spans) == [60, 20, 15, 5, 10]
+    with trace.span("outer"):
+        for _ in range(3):
+            with trace.span("inner"):
+                sum(range(1000))
+    spans = trace.take()["spans"]
+    own = trace.self_ns(spans)
+    dur = [r.end_ns - r.start_ns for r in spans]
+    assert own[0] == dur[0] - sum(dur[1:]) and own[1:] == dur[1:]
+    assert min(own) >= 0
+
+
+def test_trace_off_records_nothing():
+    from tpuao_torch.parallel.sharding import render_views_sharded
+
+    assert not trace.ON
+    trace.take()
+    z, cam, _, _ = scene(64, 96, batch=2)
+    render_frame(z[0], cam, AOParams(), device="cpu")
+    render_views_sharded(z, cam, AOParams(), device="cpu")
+    rec = trace.take()
+    assert rec["spans"] == [] and rec["dropped"] == 0
+
+
+def test_trace_cap_counts_dropped():
+    trace.enable(cap=3)
+    try:
+        with trace.span("a"):
+            for _ in range(4):
+                with trace.span("b"):
+                    pass
+    finally:
+        trace.disable()
+    rec = trace.take()
+    assert [r.name for r in rec["spans"]] == ["a", "b", "b"]
+    assert rec["dropped"] == 2 and trace.take()["dropped"] == 0
+    with pytest.raises(ValueError, match="cap"):
+        trace.enable(cap=0)
+    assert not trace.ON
+
+
+def test_trace_clock_joins_the_profilers(traced):
+    """A span around one aten op, put on torch.profiler's clock by the
+    anchor, holds the op's interval there to within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(256, 256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("mm"):
+            a @ a
+    rec = trace.take()
+    (span,) = rec["spans"]
+    epoch_ns, perf_ns = rec["anchor"]
+    s, e = (t + epoch_ns - perf_ns for t in (span.start_ns, span.end_ns))
+    (op,) = [ev for ev in prof.profiler.kineto_results.events()
+             if ev.name() == "aten::mm"]
+    slack = 50_000
+    assert s - slack <= op.start_ns() <= op.end_ns() <= e + slack
+
+
+def _ladder(impl: str, normals: bool) -> list[str]:
+    """The stages ``ao_pipeline``'s docstring lists at depth 4: under
+    ``auto`` without normals the render at level 4, the upsample step
+    4 -> 3 and three fused steps; otherwise a render at every level and an
+    upsample step from every level."""
+    if impl == "auto" and not normals:
+        return ["ao_render_l4", "ao_upsample_l4", "ao_fused_l3",
+                "ao_fused_l2", "ao_fused_l1"]
+    return ([f"ao_render_l{l}" for l in range(1, 5)]
+            + [f"ao_upsample_l{l}" for l in range(4, 0, -1)])
+
+
+@pytest.mark.parametrize("preset_name,impl,views", [
+    ("HIGH", "auto", False), ("HIGH", "pallas", False),
+    ("ULTRA", "auto", False), ("HIGH", "auto", True)])
+def test_frame_path_spans(traced, preset_name, impl, views):
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.parallel.sharding import render_views_sharded
+
+    z, cam, _, _ = scene(64, 96, batch=2)
+    params = preset(preset_name)
+    n = None
+    if params.use_normals:
+        n = torch.nn.functional.normalize(
+            torch.rand(2, 64, 96, 3, generator=torch.Generator().manual_seed(
+                1)) - 0.5, dim=-1)
+    if views:
+        render_views_sharded(z, cam, params, normals=n, impl=impl,
+                             device="cpu")
+    else:
+        render_frame(z, cam, params, normals=n, impl=impl, device="cpu")
+    spans = trace.take()["spans"]
+    entry = ["ao_entry.render_views"] if views else []
+    entry += ["ao_entry.render_frame", "ao_prepare"]
+    entry += ["ao_slopes"] if n is not None else []
+    stages = _ladder(impl, n is not None)
+    # the CPU runs the plain versions: no launch
+    assert [r.name for r in spans] == entry + stages
+    frame = 1 if views else 0  # render_frame's span
+    assert spans[0].parent == -1 and spans[0].frames == 2
+    assert spans[frame].parent == frame - 1 and spans[frame].frames == 2
+    for r in spans[frame + 1:]:
+        assert r.parent == frame and r.frames == 0

@@ -42,6 +42,8 @@ path.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -53,6 +55,7 @@ from tpuao_torch.ops import temporal as T
 from tpuao_torch.ops import upsample as U
 from tpuao_torch.params import (AOParams, CameraParams, TemporalParams,
                                 load_config, padded_shape, save_config)
+from tpuao_torch.utils import trace
 from tpuao_torch.utils.camera import relative_motion
 
 IMPLS = ("auto", "jnp", "pallas", "fused")
@@ -95,6 +98,11 @@ def _normals_on(normals, device: torch.device) -> torch.Tensor:
     return _as_tensor(normals, device)
 
 
+def _frames(x) -> int:
+    """Frames in a (..., H, W) batch (a tensor or array-like)."""
+    return math.prod(np.shape(x)[:-2])
+
+
 def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
                 impl: str = "auto", all_levels: bool = False,
                 stop_at_level1: bool = False):
@@ -130,22 +138,24 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     d = params.hierarchy_depth
     render_level = _select_render_impl(impl)
 
-    # the padded depth is not held past linearising: where it is a copy
-    # and the depth is hardware depth, it is a frame of its own
-    linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
-                             camera)
-    # each level once as a dense array: the kernels read raw pointers
-    pyr = [lvl.contiguous() for lvl in P.build_pyramid(linz, d)]
+    with trace.span("ao_prepare") if trace.ON else trace.OFF:
+        # the padded depth is not held past linearising: where it is a
+        # copy and the depth is hardware depth, it is a frame of its own
+        linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
+                                 camera)
+        # each level once as a dense array: the kernels read raw pointers
+        pyr = [lvl.contiguous() for lvl in P.build_pyramid(linz, d)]
     nkw = [{} for _ in range(d + 1)]
     if use_n:
-        normals = _normals_on(normals, depth.device)
-        if impl == "pallas":  # the raw-normals ABI
-            nkw = [{"normals_ds": n}
-                   for n in R.normals_pyramid(normals, hp, wp, d)]
-        else:  # slope planes once at full res, then pick-one
-            nkw = [{"slopes_ds": g} for g in R.slope_pyramid(
-                normals.to(torch.float32), camera.tan_half_fov_h, hp, wp, d,
-                h0=h0, w0=w0)]
+        with trace.span("ao_slopes") if trace.ON else trace.OFF:
+            normals = _normals_on(normals, depth.device)
+            if impl == "pallas":  # the raw-normals ABI
+                nkw = [{"normals_ds": n}
+                       for n in R.normals_pyramid(normals, hp, wp, d)]
+            else:  # slope planes once at full res, then pick-one
+                nkw = [{"slopes_ds": g} for g in R.slope_pyramid(
+                    normals.to(torch.float32), camera.tan_half_fov_h, hp,
+                    wp, d, h0=h0, w0=w0)]
     fused = impl in ("auto", "fused") and params.enable_blur and not use_n
     if not params.enable_blur:
         levels = range(1, d + 1) if all_levels else (1,)
@@ -155,8 +165,10 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
         levels = (d, 1) if stop_at_level1 and d > 1 else (d,)
     else:
         levels = range(1, d + 1)
-    aos = {l: render_level(pyr[l], l, wp, camera, params, **nkw[l])
-           for l in levels}
+    aos = {}
+    for l in levels:
+        with trace.span(f"ao_render_l{l}") if trace.ON else trace.OFF:
+            aos[l] = render_level(pyr[l], l, wp, camera, params, **nkw[l])
     debug = {"linear_z": linz, "ao_levels": aos,
              "pyramid": {l: pyr[l] for l in range(d + 1)}}
 
@@ -178,13 +190,15 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     for l in range(d, 1 if stop_at_level1 else 0, -1):
         crop = (h0, w0) if l == 1 and not padded_c0 else None
         if fused and l != d:
-            combined = K.fused_render_upsample_step(
-                pyr[l], combined, pyr[l - 1], l, wp, camera, params,
-                crop_hw=crop)
+            with trace.span(f"ao_fused_l{l}") if trace.ON else trace.OFF:
+                combined = K.fused_render_upsample_step(
+                    pyr[l], combined, pyr[l - 1], l, wp, camera, params,
+                    crop_hw=crop)
         else:
-            combined = upsample_step(
-                combined, pyr[l], pyr[l - 1], params, wp,
-                lo_ao2=None if l == d else aos[l], crop_hw=crop)
+            with trace.span(f"ao_upsample_l{l}") if trace.ON else trace.OFF:
+                combined = upsample_step(
+                    combined, pyr[l], pyr[l - 1], params, wp,
+                    lo_ao2=None if l == d else aos[l], crop_hw=crop)
         debug[f"combined_{l - 1}"] = combined
     if stop_at_level1:
         return (torch.minimum(combined, aos[1]) if d > 1 else aos[1]), debug
@@ -250,14 +264,16 @@ def render_frame(depth, camera=None, params=None, normals=None, color=None,
     channel-first (..., 3, H, W), batched like ``depth``.  ``out_dtype``:
     ``"float32"``, ``"bfloat16"`` or ``"uint8"``.
     """
-    camera = camera or CameraParams()
-    params = params or AOParams()
-    depth = _as_tensor(depth, device)
-    ao, debug = ao_pipeline(depth, camera, params, normals, impl=impl,
-                            all_levels=debug_outputs)
-    out = ao if color is None else C.composite(
-        _as_tensor(color, depth.device), ao)
-    out = _quantize(out, out_dtype)
+    with (trace.span("ao_entry.render_frame", frames=_frames(depth))
+          if trace.ON else trace.OFF):
+        camera = camera or CameraParams()
+        params = params or AOParams()
+        depth = _as_tensor(depth, device)
+        ao, debug = ao_pipeline(depth, camera, params, normals, impl=impl,
+                                all_levels=debug_outputs)
+        out = ao if color is None else C.composite(
+            _as_tensor(color, depth.device), ao)
+        out = _quantize(out, out_dtype)
     return (out, debug) if debug_outputs else out
 
 

@@ -41,6 +41,7 @@ from tpuao_torch.ops import upsample as U
 from tpuao_torch.params import (PARAM_RANGES, AOParams, sphere_radius_coef,
                                 upsample_constants)
 from tpuao_torch.utils import launch_opts as L
+from tpuao_torch.utils import trace
 
 # One tap pair as the kernels read it (tpuao::Pair in csrc/common.cuh).
 _PAIR_DTYPE = np.dtype([("dx", np.int32), ("dy", np.int32),
@@ -128,17 +129,18 @@ def _ptr(x: torch.Tensor | None):
 def _launch(entry: str, *args) -> None:
     """Call one C entry point (building the library at first use); raise
     if the launch returned a CUDA error (an ``nt`` with no instance
-    among them)."""
+    among them).  Traced as ``ao_launch``."""
     from tpuao_torch.ops import _build
 
-    lib = _build.load()
-    if entry in _build.NT_ENTRIES and not lib.takes_nt:
-        # an older tree's kernels, timed beside these: their rule only
-        if args[-3]:
-            raise RuntimeError(f"{entry}: this library's launches take no "
-                               "tile rows")
-        args = args[:-3] + args[-2:]
-    _build.check(lib, getattr(lib, entry)(*args), entry)
+    with trace.span("ao_launch") if trace.ON else trace.OFF:
+        lib = _build.load()
+        if entry in _build.NT_ENTRIES and not lib.takes_nt:
+            # an older tree's kernels, timed beside these: their rule only
+            if args[-3]:
+                raise RuntimeError(f"{entry}: this library's launches take "
+                                   "no tile rows")
+            args = args[:-3] + args[-2:]
+        _build.check(lib, getattr(lib, entry)(*args), entry)
 
 
 class Launch(NamedTuple):

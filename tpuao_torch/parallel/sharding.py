@@ -30,9 +30,10 @@ import numpy as np
 import torch
 
 from tpuao_torch.models.pipeline import (_as_tensor, _check_resolve_level,
-                                         ao_pipeline, render_frame,
+                                         _frames, ao_pipeline, render_frame,
                                          render_frame_temporal)
 from tpuao_torch.params import AOParams, CameraParams, TemporalParams
+from tpuao_torch.utils import trace
 
 VIEW_AXIS = "views"
 
@@ -281,34 +282,39 @@ def render_views_sharded(depths, camera=None, params=None, normals=None,
     uniform rig costs the launches of one batch a shard and a rig of G
     distinct views G times that.
     """
-    camera = camera or CameraParams()
-    params = params or AOParams()
-    devices = _mesh_devices(mesh, device)
-    depths = _views(depths, devices[0])
-    n = depths.shape[0]
-    rig = _rig(camera, params, n) if per_view else None
-    kw = dict(impl=impl, out_dtype=out_dtype, debug_outputs=debug_outputs)
-    n_dev = len(devices)
-    if n_dev == 1:
-        return _render_local(depths, camera, params, normals, color, rig, kw)
-    normals = None if normals is None else _as_tensor(normals, depths.device)
-    color = None if color is None else _as_tensor(color, depths.device)
-    pad = -(-n // n_dev) * n_dev - n
-    depths, normals, color, rig = (_pad_views(x, pad)
-                                   for x in (depths, normals, color, rig))
-    k = (n + pad) // n_dev
-    parts = []
-    for i, dev in enumerate(devices):
-        sl = slice(i * k, (i + 1) * k)
-        with _on_device(dev):
-            parts.append(_render_local(
-                _shard(depths, sl, dev), camera, params,
-                _shard(normals, sl, dev), _shard(color, sl, dev),
-                None if rig is None else rig[sl], kw))
-    res = _gather(parts, devices[0])
-    out, dbg = res if debug_outputs else (res, None)
-    out = out[:n] if pad else out
-    return (out, dbg) if debug_outputs else out
+    with (trace.span("ao_entry.render_views", frames=_frames(depths))
+          if trace.ON else trace.OFF):
+        camera = camera or CameraParams()
+        params = params or AOParams()
+        devices = _mesh_devices(mesh, device)
+        depths = _views(depths, devices[0])
+        n = depths.shape[0]
+        rig = _rig(camera, params, n) if per_view else None
+        kw = dict(impl=impl, out_dtype=out_dtype,
+                  debug_outputs=debug_outputs)
+        n_dev = len(devices)
+        if n_dev == 1:
+            return _render_local(depths, camera, params, normals, color, rig,
+                                 kw)
+        normals = (None if normals is None
+                   else _as_tensor(normals, depths.device))
+        color = None if color is None else _as_tensor(color, depths.device)
+        pad = -(-n // n_dev) * n_dev - n
+        depths, normals, color, rig = (_pad_views(x, pad)
+                                       for x in (depths, normals, color, rig))
+        k = (n + pad) // n_dev
+        parts = []
+        for i, dev in enumerate(devices):
+            sl = slice(i * k, (i + 1) * k)
+            with _on_device(dev):
+                parts.append(_render_local(
+                    _shard(depths, sl, dev), camera, params,
+                    _shard(normals, sl, dev), _shard(color, sl, dev),
+                    None if rig is None else rig[sl], kw))
+        res = _gather(parts, devices[0])
+        out, dbg = res if debug_outputs else (res, None)
+        out = out[:n] if pad else out
+        return (out, dbg) if debug_outputs else out
 
 
 # ---------------------------------------------------------------------------
