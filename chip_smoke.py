@@ -15,7 +15,11 @@ Phases, one or more lines each:
 4. slice   -- ``render_frame`` on a batch of four 1080p frames under
               ``impl="auto"`` (the main path; its launch counts must be
               render 1, upsample 1, fused 3) and ``"pallas"``, held against
-              ``impl="jnp"``; one 4K frame; uint8 output and composite;
+              ``impl="jnp"``; the same call replayed from its CUDA graph
+              (``models/frame_graph``: captured on the second call),
+              bit-equal to the first and held against ``"jnp"``, its
+              launches read from the card's kernel records; one 4K frame;
+              uint8 output and composite;
 5. times   -- ms per 1080p frame for auto / pallas / jnp, and each
               kernel's time beside its plain version's;
 6. normals and windowed kernels against their plain versions on the card:
@@ -165,9 +169,10 @@ path, worst error, device time by graph replay as ``ms`` with the event
 time beside it as ``event_ms``, its plain version's event time, computed
 bound and library call: grid_sample's device time for the windowed
 resolve, none for the rest; ``launches_by_path`` its launches on every
-path driven: frame, ULTRA engine, temporal, variants, serving, mesh
-views, fleet at each level, mesh server, autodiff and the spatial and
-grid runs and the sections), the nvidia-smi
+path driven: frame, frame replay (the card's kernel records), ULTRA
+engine, temporal, variants, serving, mesh views, fleet at each level,
+mesh server, autodiff and the spatial and grid runs and the sections),
+the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or when any phase
 fails, it exits non-zero before printing a result.  It imports neither JAX
@@ -186,7 +191,8 @@ import sys
 import tempfile
 import time
 
-from tpuao_torch.utils.roofline import (WINDOWED_OPS, bound, chain_work,
+from tpuao_torch.utils.roofline import (WINDOWED_OPS, bound,
+                                        census_by_wrapper, chain_work,
                                         launch_census, render_work)
 
 TOL = 1e-5  # kernel vs plain version, both float32 on the card
@@ -3020,6 +3026,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from tpuao_torch.models import frame_graph
     from tpuao_torch.models.pipeline import render_frame
     from tpuao_torch.ops import _build
     from tpuao_torch.ops import kernels as K
@@ -3162,6 +3169,32 @@ def main(argv=None) -> int:
         raise RuntimeError("AO outside [0, 1]")
     chk.close("", "batch 4x1080p auto vs jnp", out_auto, out_jnp)
     chk.close("", "batch 4x1080p pallas vs jnp", out_pallas, out_jnp)
+    # the replay path: the key's second call captures its CUDA graph and
+    # replays it, later calls replay; a replay calls no wrapper, so its
+    # launches are the card's own kernel records (torch.profiler)
+    g0 = frame_graph.graph_counts()
+    replayed = [render_frame(batch, cam_hw, par, impl="auto")
+                for _ in range(2)]
+    census = census_by_wrapper(launch_census(
+        lambda: render_frame(batch, cam_hw, par, impl="auto"), calls=5))
+    g1 = frame_graph.graph_counts()
+    moved = (g1["captures"] - g0["captures"], g1["replays"] - g0["replays"])
+    if moved != (1, 8):
+        raise RuntimeError(f"replay path: {moved} captures and replays, "
+                           "not (1, 8)")
+    for r in replayed:
+        if not torch.equal(r, out_auto):
+            raise RuntimeError("a replayed frame differs from the eager one")
+    chk.close("", "batch 4x1080p replayed vs jnp", replayed[1], out_jnp)
+    replay_counts = counts(**{k: n // 5 for k, n in census.items()})
+    if any(census.get(k, 0) > 5 * n for k, n in want_counts.items()) or \
+            set(census) != {k for k, n in want_counts.items() if n}:
+        raise RuntimeError(f"5 replays launched {census} (torch.profiler)")
+    if replay_counts != want_counts:  # fewer: the profiler dropped some
+        print(f"  note: torch.profiler saw {census} over 5 replays: "
+              "records were lost")
+    print(f"  replayed (capture on call 2): bit-equal to the eager call, "
+          f"launches a call by the card's records {replay_counts}")
     K.reset_launch_counts()
     one = render_frame(batch[1], cam_hw, par, impl="auto")
     if K.launch_counts() != want_counts:
@@ -3283,7 +3316,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tune_paths, tune_records = phase_tune(chk, dev, K, P, R, F, card,
                                               pathlib.Path(tmp))
-    paths = {"frame": main_counts, "ultra engine": ultra_counts,
+    paths = {"frame": main_counts, "frame replay": replay_counts,
+             "ultra engine": ultra_counts,
              "temporal": temporal_counts, "variants": variant_counts,
              "serving": serving_counts, **mesh_paths,
              "autodiff": autodiff_counts, **spatial_paths, **section_paths,

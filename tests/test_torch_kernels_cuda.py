@@ -871,8 +871,19 @@ def test_launch_census_and_stage_times_read_the_device(dev):
     assert len(st) == 10 and all(ms > 0 for ms in st.values())
 
 
+@pytest.fixture
+def eager_frames():
+    """An empty graph cache: the next call of every frame shape runs the
+    eager path, the one after captures it (``models/frame_graph``)."""
+    from tpuao_torch.models import frame_graph
+
+    frame_graph._clear()
+    yield
+    frame_graph._clear()
+
+
 @pytest.mark.parametrize("case", ["HIGH", "HIGH_pallas", "ULTRA", "rig"])
-def test_trace_launch_spans_equal_the_launch_counts(dev, case):
+def test_trace_launch_spans_equal_the_launch_counts(dev, case, eager_frames):
     """Each stage span's ``ao_launch`` children are the launches its
     wrapper counted, and tracing does not change a bit of the output."""
     from tpuao_torch.parallel.sharding import render_views_sharded
@@ -911,3 +922,197 @@ def test_trace_launch_spans_equal_the_launch_counts(dev, case):
         "ao_fused_l": got["fused_render_upsample_step"]}.items() if v}
     assert sum(by_stage.values()) == sum(got.values()) == {
         "HIGH": 5, "HIGH_pallas": 8, "ULTRA": 8, "rig": 5}[case]
+
+
+# ---------------------------------------------------------------------------
+# render_frame's CUDA graphs (models/frame_graph): bit-equal to the eager
+# path, fresh outputs, two streams on one key, the launch counts
+# ---------------------------------------------------------------------------
+
+
+def graph_against_eager(call, launches=None):
+    """``call()`` three times on an empty cache: eager (first sight),
+    captured and replayed, then replayed; both replays bit-equal to the
+    eager output, each call's launch counts ``launches`` where given.
+    Returns the eager output."""
+    from tpuao_torch.models import frame_graph as G
+
+    G._clear()
+    outs = []
+    for _ in range(3):
+        K.reset_launch_counts()
+        outs.append(call())
+        if launches is not None:
+            assert K.launch_counts() == launches
+    torch.cuda.synchronize()
+    assert G.graph_counts() == {
+        "captures": 1, "replays": 2,
+        "eager": {**dict.fromkeys(G.REASONS, 0), "first_sight": 1}}
+    for got in outs[1:]:
+        assert got.dtype == outs[0].dtype and torch.equal(got, outs[0])
+        assert got.data_ptr() != outs[0].data_ptr()
+    assert outs[1].data_ptr() != outs[2].data_ptr()  # a fresh output
+    return outs[0]
+
+
+HIGH_LAUNCHES = dict(render_ao_level=1, blur_upsample_step=1,
+                     fused_render_upsample_step=3)
+
+
+@pytest.mark.parametrize("batch", [None, 8])
+def test_graph_high_1080p_bit_equal_to_eager(dev, batch, eager_frames):
+    z = torch.as_tensor(F.spheres_on_plane(1080, 1920, CAM, seed=4),
+                        dtype=torch.float32, device=dev)
+    if batch is not None:  # eight distinct views
+        z = torch.stack([torch.roll(z, 61 * i, dims=-1)
+                         for i in range(batch)])
+    graph_against_eager(lambda: render_frame(z, CAM, preset("HIGH")),
+                        counts(**HIGH_LAUNCHES))
+
+
+def test_graph_ultra_4k_channel_last_normals_bit_equal_to_eager(
+        dev, eager_frames):
+    z, n = normals_scene(dev, 2160, 3840, seed=5)
+    assert n.shape == (2160, 3840, 3)
+    graph_against_eager(
+        lambda: render_frame(z, CAM, preset("ULTRA"), normals=n),
+        counts(render_ao_level_normals=4, blur_upsample_step=4))
+
+
+def test_graph_colour_uint8_bit_equal_to_eager(dev, eager_frames):
+    z = torch.as_tensor(F.spheres_on_plane(270, 480, CAM, seed=6),
+                        dtype=torch.float32, device=dev)
+    rgb = torch.randint(0, 256, (270, 480, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    out = graph_against_eager(lambda: render_frame(
+        z, CAM, preset("HIGH"), color=rgb, out_dtype="uint8"))
+    assert out.dtype == torch.uint8 and out.shape == (270, 480, 3)
+    graph_against_eager(lambda: render_frame(z, CAM, out_dtype="uint8"))
+
+
+def test_graph_replays_the_new_frame_not_the_old(dev, eager_frames):
+    """A frame of the key's shape after a replay gets its own AO, and the
+    output an earlier call holds is not overwritten."""
+    z1, z2 = (torch.as_tensor(F.spheres_on_plane(540, 960, CAM, seed=s),
+                              dtype=torch.float32, device=dev)
+              for s in (7, 8))
+    want1 = render_frame(z1, CAM)  # eager
+    got1 = render_frame(z1, CAM)  # captured and replayed
+    got2 = render_frame(z2, CAM)  # replayed on the new frame
+    want2 = render_frame(z2, CAM, debug_outputs=True)[0]  # eager
+    torch.cuda.synchronize()
+    assert torch.equal(got1, want1) and torch.equal(got2, want2)
+    assert not torch.equal(got1, got2)
+
+
+def test_graph_two_threads_on_two_streams_share_one_key(dev, eager_frames):
+    """Two threads, each on a stream of its own, replay one key 20 times
+    without a synchronise; every output is its own frame's."""
+    import threading
+
+    from tpuao_torch.models import frame_graph as G
+
+    zs = [torch.as_tensor(F.spheres_on_plane(540, 960, CAM, seed=s),
+                          dtype=torch.float32, device=dev) for s in (9, 10)]
+    want = [render_frame(z, CAM, debug_outputs=True)[0] for z in zs]
+    render_frame(zs[0], CAM)
+    render_frame(zs[0], CAM)  # captured
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            start.wait(timeout=60)
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    outs[i].append(render_frame(zs[i], CAM))
+            stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(outs[i]) == 20
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+    assert G.graph_counts()["captures"] == 1
+    assert G.graph_counts()["replays"] == 41
+
+
+def test_graph_replay_adds_the_captured_launch_counts(dev, eager_frames):
+    """Each replay adds the launches its capture made, once: the counts
+    keep meaning kernels the card ran (the capture itself runs none).
+    The card's own kernel records of the replays (torch.profiler) name
+    the same kernels; it may drop records on a busy host, so at most,
+    not exactly, 5 replays' worth."""
+    from tpuao_torch.parallel.sharding import render_views_sharded
+    from tpuao_torch.utils.roofline import census_by_wrapper, launch_census
+
+    z, n = normals_scene(dev, batch=2)
+    for call, want in (
+            (lambda: render_frame(z, CAM, preset("HIGH")), HIGH_LAUNCHES),
+            (lambda: render_frame(z, CAM, preset("ULTRA"), normals=n,
+                                  impl="pallas"),
+             dict(render_ao_level_normals=4, blur_upsample_step=4)),
+            (lambda: render_views_sharded(z, CAM, preset("HIGH")),
+             HIGH_LAUNCHES)):
+        graph_against_eager(call, counts(**want))
+        K.reset_launch_counts()
+        census = census_by_wrapper(launch_census(call, calls=5))
+        assert K.launch_counts() == counts(**{k: 6 * v
+                                              for k, v in want.items()})
+        assert set(census) == set(want), census
+        assert all(0 < census[k] <= 5 * v for k, v in want.items()), census
+    K.reset_launch_counts()
+    render_frame(z, CAM, preset("ULTRA"), normals=n, impl="pallas")
+    assert K.render_ao_level_normals.raw_launches == 4
+
+
+def test_graph_capture_leaves_another_threads_launches_counted(
+        dev, eager_frames):
+    """While one thread captures a frame's graph, another launches eager
+    frames on a stream of its own: the counts hold every launch of the
+    other thread once, and the capturing thread's as the card ran them
+    (eager, then two replays), none taken off or added twice."""
+    import threading
+
+    z = torch.as_tensor(F.spheres_on_plane(540, 960, CAM, seed=11),
+                        dtype=torch.float32, device=dev)
+    zb = torch.as_tensor(F.spheres_on_plane(270, 480, CAM, seed=12),
+                         dtype=torch.float32, device=dev)
+    K.reset_launch_counts()
+    render_frame(zb, CAM, debug_outputs=True)  # build, warm, count
+    torch.cuda.synchronize()
+    per_other = K.launch_counts()  # the debug path renders every level
+    K.reset_launch_counts()
+    stop, started, done = threading.Event(), threading.Event(), []
+
+    def other():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            while not stop.is_set():
+                render_frame(zb, CAM, debug_outputs=True)  # eager
+                done.append(1)
+                started.set()
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=other)
+    t.start()
+    try:
+        assert started.wait(timeout=60)
+        outs = [render_frame(z, CAM) for _ in range(3)]  # capture in #2
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    assert K.launch_counts() == {
+        k: 3 * HIGH_LAUNCHES.get(k, 0) + len(done) * n
+        for k, n in per_other.items()}

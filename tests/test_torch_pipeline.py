@@ -462,3 +462,293 @@ def test_frame_path_spans(traced, preset_name, impl, views):
     assert spans[frame].parent == frame - 1 and spans[frame].frames == 2
     for r in spans[frame + 1:]:
         assert r.parent == frame and r.frames == 0
+
+
+# ---------------------------------------------------------------------------
+# models/frame_graph on the CPU: the key, the engage rules and the cache,
+# with the capture stubbed (the graphs themselves run on the card:
+# tests/test_torch_kernels_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def graphs():
+    from tpuao_torch.models import frame_graph
+
+    frame_graph._clear()
+    yield frame_graph
+    frame_graph._clear()
+
+
+def test_frame_graph_key_holds_what_decides_the_launches(graphs):
+    from tpuao_torch.utils import launch_opts as L
+
+    z = torch.zeros(2, 64, 96)
+    cam, par = CameraParams(depth_mode="linear"), AOParams()
+    key = graphs._key(z, None, cam, par, "auto")
+    same = graphs._key(torch.ones(2, 64, 96), None,
+                       CameraParams(depth_mode="linear"), AOParams(), "auto")
+    assert key == same and hash(key) == hash(same)
+    changed = [
+        graphs._key(z, None, cam, par.replace(strength=1.5), "auto"),
+        graphs._key(z, None, cam.replace(near=0.2), par, "auto"),
+        graphs._key(z[:1], None, cam, par, "auto"),
+        graphs._key(z.double(), None, cam, par, "auto"),
+        graphs._key(torch.zeros(2, 96, 64).transpose(-1, -2), None, cam,
+                    par, "auto"),
+        graphs._key(z, torch.zeros(2, 64, 96, 3), cam, par, "auto"),
+        graphs._key(z, None, cam, par, "pallas"),
+    ]
+    try:
+        L.set_tuned_tiles("fused_render_upsample_step", 2, 32, 48, 2)
+        changed.append(graphs._key(z, None, cam, par, "auto"))
+        L.clear_tuned_tiles()  # the same table as before, a new generation
+        changed.append(graphs._key(z, None, cam, par, "auto"))
+        L.restore_tuned_tiles({})  # autotune's restore after a sweep
+        changed.append(graphs._key(z, None, cam, par, "auto"))
+    finally:
+        L.clear_tuned_tiles()
+    assert len({key, *changed}) == len(changed) + 1
+
+
+@pytest.mark.parametrize("reason", ["cpu", "grad", "debug", "capturing",
+                                    "tensor_params"])
+def test_frame_graph_eager_calls_by_reason(graphs, monkeypatch, reason):
+    """Each call the graphs must not take runs the eager path, bit-equal,
+    counted under its reason; nothing is captured or replayed."""
+    z, cam, _, _ = scene(64, 96, batch=2)
+    z = torch.as_tensor(z)
+    par = AOParams()
+    impl = "jnp" if reason == "grad" else "auto"
+    want = render_frame(z, cam, par, impl=impl)
+    graphs._clear()
+    if reason != "cpu":  # as if on the card
+        monkeypatch.setattr(graphs, "_on_card", lambda depth: True)
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: reason == "capturing")
+    if reason == "tensor_params":
+        par = par.replace(strength=torch.tensor(1.0))
+    if reason == "grad":
+        z = z.clone().requires_grad_()
+    got = render_frame(z, cam, par, impl=impl,
+                       debug_outputs=reason == "debug")
+    if reason == "debug":
+        got = got[0]
+    if reason == "grad":
+        assert got.requires_grad
+    assert torch.equal(got.detach(), want)
+    assert graphs.graph_counts() == {
+        "captures": 0, "replays": 0,
+        "eager": {**dict.fromkeys(graphs.REASONS, 0), reason: 1}}
+
+
+def test_frame_graph_bypassed_by_the_paths_that_call_the_pipeline(
+        graphs, monkeypatch):
+    """The temporal loop, sections, the spatial mode and autodiff call
+    ``ao_pipeline`` directly: the cache sees none of their frames."""
+    from tpuao_torch.models.autodiff import ao_loss
+    from tpuao_torch.models.pipeline import render_sequence_temporal
+    from tpuao_torch.parallel.sections import render_frame_sections
+    from tpuao_torch.parallel.spatial import render_frame_spatial
+
+    monkeypatch.setattr(graphs, "_on_card", lambda depth: True)
+    z, cam, _, _ = scene(256, 96, batch=2)
+    z = torch.as_tensor(z)
+    par = AOParams(hierarchy_depth=2)
+    render_sequence_temporal(z, cam, par)
+    render_frame_sections(z[0], cam, par, n_sections=2)
+    render_frame_spatial(z[0], cam, par, mesh=["cpu"] * 2)
+    ao_loss(par, z[0], torch.ones(256, 96), cam)
+    assert graphs.graph_counts() == {
+        "captures": 0, "replays": 0,
+        "eager": dict.fromkeys(graphs.REASONS, 0)}
+
+
+def _stub_capture(graphs, monkeypatch, sizes, bound=100):
+    """``_capture`` stubbed to an entry of ``sizes[key]`` pool bytes, and
+    the cache's bound set to ``bound`` bytes."""
+    import types
+
+    monkeypatch.setattr(graphs, "_bound", lambda device: bound)
+    monkeypatch.setattr(graphs, "_capture", lambda depth, normals, program:
+                        types.SimpleNamespace(nbytes=sizes[program]))
+
+    def call(key):
+        """``_entry_for`` as ``replay`` calls it, with its counts."""
+        entry, reason = graphs._entry_for(key, torch.zeros(4, 4), None, key)
+        if reason is None:
+            graphs._counts["replays"] += 1
+        else:
+            graphs._eager[reason] += 1
+        return entry, reason
+
+    return call
+
+
+def test_frame_graph_first_sight_then_capture_then_hits(graphs, monkeypatch):
+    call = _stub_capture(graphs, monkeypatch, {"a": 10})
+    assert call("a") == (None, "first_sight")
+    entry, reason = call("a")
+    assert reason is None and entry.nbytes == 10
+    assert call("a") == (entry, None)  # a hit: no new capture
+    assert graphs.graph_counts()["captures"] == 1
+    assert list(graphs._entries) == ["a"]
+
+
+def test_frame_graph_cache_evicts_the_least_recent(graphs, monkeypatch):
+    sizes = {"a": 10, "b": 10, "c": 10, "d": 10, "e": 90, "f": 500}
+    call = _stub_capture(graphs, monkeypatch, sizes, bound=100)
+    monkeypatch.setattr(graphs, "MAX_ENTRIES", 3)
+    monkeypatch.setattr(graphs, "PAYBACK", 1)  # every capture paid for
+
+    def capture(key):
+        call(key)
+        return call(key)[0]
+
+    for key in "abc":
+        capture(key)
+    call("a")  # a hit makes "a" the most recent
+    capture("d")  # four entries: the least recent, "b", goes
+    assert list(graphs._entries) == ["c", "a", "d"]
+    capture("e")  # 120 bytes: "c" then "a" go, down to 100
+    assert list(graphs._entries) == ["d", "e"]
+    capture("f")  # larger than the bound alone: the newest stays
+    assert list(graphs._entries) == ["f"]
+    assert graphs.graph_counts()["captures"] == 6
+    assert graphs.pool_bytes() == 500
+    # an evicted key runs eager from then on, and captures nothing
+    for key in "abcde":
+        assert call(key) == (None, "evicted")
+    assert list(graphs._entries) == ["f"]
+    assert graphs.graph_counts()["captures"] == 6
+
+
+@pytest.mark.parametrize("n_keys", [40, 200])
+def test_frame_graph_more_keys_than_the_cache_do_not_thrash(
+        graphs, monkeypatch, n_keys):
+    """Keys that outnumber the cache, called round-robin (a per-view rig
+    of ``n_keys`` distinct views): no key captures twice, and once each
+    has had its turn, the cache's keys replay and the rest run eager."""
+    import collections
+
+    call = _stub_capture(graphs, monkeypatch,
+                         collections.defaultdict(lambda: 1), bound=10 ** 9)
+    keys = [f"k{i}" for i in range(n_keys)]
+
+    def rounds(n):
+        for _ in range(n):
+            for key in keys:
+                call(key)
+        return graphs.graph_counts()
+
+    settled = rounds(30)
+    assert settled["captures"] <= (n_keys if n_keys <= 4 * graphs.MAX_ENTRIES
+                                   else 0)
+    last = rounds(10)
+    assert last["captures"] == settled["captures"]
+    replays = last["replays"] - settled["replays"]
+    eager = {r: n - settled["eager"][r] for r, n in last["eager"].items()}
+    if n_keys == 40:  # the cache's 32 replay, the 8 evicted run eager
+        assert len(graphs._entries) == graphs.MAX_ENTRIES
+        assert replays == 10 * graphs.MAX_ENTRIES
+        assert eager["evicted"] == 10 * (n_keys - graphs.MAX_ENTRIES)
+    else:  # more keys than the seen list holds: every call is a first
+        assert not graphs._entries and replays == 0
+        assert eager["first_sight"] == 10 * n_keys
+
+
+def test_frame_graph_captures_beyond_the_cache_wait_for_replays(
+        graphs, monkeypatch):
+    """Fresh keys, each called twice and never again: past the first
+    ``MAX_ENTRIES`` captures, a key captures only once ``PAYBACK`` more
+    replays have paid for it."""
+    import collections
+
+    call = _stub_capture(graphs, monkeypatch,
+                         collections.defaultdict(lambda: 1), bound=10 ** 9)
+    for i in range(4 * graphs.MAX_ENTRIES):
+        call(f"fresh{i}")
+        call(f"fresh{i}")
+    counts = graphs.graph_counts()
+    assert counts["captures"] == graphs.MAX_ENTRIES
+    assert counts["eager"]["budget"] == 3 * graphs.MAX_ENTRIES
+    hot = next(reversed(graphs._entries))
+    for _ in range(graphs.PAYBACK):
+        call(hot)  # replays of a cached key pay for one capture more
+    assert call("late") == (None, "first_sight")
+    assert call("late")[1] is None
+    assert graphs.graph_counts()["captures"] == graphs.MAX_ENTRIES + 1
+
+
+def test_frame_graph_a_failed_capture_runs_eager_from_then_on(
+        graphs, monkeypatch):
+    tries = []
+
+    def fail(depth, normals, program):
+        tries.append(program)
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(graphs, "_capture", fail)
+    depth = torch.zeros(4, 4)
+    assert graphs._entry_for("k", depth, None, "k") == (None, "first_sight")
+    with pytest.warns(RuntimeWarning, match="runs eager"):
+        assert graphs._entry_for("k", depth, None, "k") == (None,
+                                                            "uncapturable")
+    assert graphs._entry_for("k", depth, None, "k") == (None, "uncapturable")
+    assert tries == ["k"] and graphs.graph_counts()["captures"] == 0
+
+
+def test_launch_tally_takes_only_its_own_threads_launches():
+    """In a ``kernels.tally_launches`` block this thread's launches go to
+    the tally (a capture's), another thread's meanwhile to the counts;
+    ``add_launches`` adds the tally once a call (a replay's)."""
+    import threading
+
+    from tpuao_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    try:
+        with K.tally_launches() as tally:
+            K._count(K.render_ao_level)
+            t = threading.Thread(target=lambda: [
+                K._count(K.blur_upsample_step) for _ in range(3)])
+            t.start()
+            t.join()
+            K._count(K.render_ao_level_normals)
+            K._count(K.render_ao_level_normals, "raw_launches")
+        assert tally == {(K.render_ao_level, "launches"): 1,
+                         (K.render_ao_level_normals, "launches"): 1,
+                         (K.render_ao_level_normals, "raw_launches"): 1}
+        assert K.launch_counts() == {**dict.fromkeys(K.launch_counts(), 0),
+                                     "blur_upsample_step": 3}
+        assert K.render_ao_level_normals.raw_launches == 0
+        K._count(K.render_ao_level)  # the block is closed: counted
+        for _ in range(2):
+            K.add_launches(tally)
+        assert K.launch_counts() == {**dict.fromkeys(K.launch_counts(), 0),
+                                     "render_ao_level": 3,
+                                     "render_ao_level_normals": 2,
+                                     "blur_upsample_step": 3}
+        assert K.render_ao_level_normals.raw_launches == 2
+    finally:
+        K.reset_launch_counts()
+
+
+def test_census_by_wrapper_sorts_the_card_records():
+    """``roofline.census_by_wrapper`` on kernel names as torch.profiler
+    gives them (``launch_census``'s shortening): the render's mode picks
+    its wrapper, prepare's and copies' kernels are left out."""
+    from tpuao_torch.utils.roofline import census_by_wrapper
+
+    census = {"tpuao::render_kernel<34, 0, 2>": (4, 0.1),
+              "tpuao::render_kernel<34, 1, 1>": (8, 0.2),
+              "tpuao::render_kernel<10, 2, 1>": (1, 0.1),
+              "tpuao::upsample_kernel<1>": (4, 0.1),
+              "tpuao::fused_step_kernel<34, 2>": (6, 0.3),
+              "tpuao::fused_step_kernel<34, 1>": (6, 0.3),
+              "elementwise_kernel<128, 2, ...>": (9, 0.1),
+              "Memcpy DtoD (Device -> Device)": (8, 0.1)}
+    assert census_by_wrapper(census) == {
+        "render_ao_level": 4, "render_ao_level_normals": 9,
+        "blur_upsample_step": 4, "fused_render_upsample_step": 12}

@@ -3,8 +3,9 @@
 Counterpart of the frame path of ``tpuao/models/pipeline.py``: depth ->
 pad to 64 -> linearise -> pick-one pyramid -> per-level AO -> blur/upsample
 chain -> crop [-> composite -> quantise].  PyTorch runs eagerly, so there is
-no jit and no program cache: every call runs the ops on the device its
-tensors are on.
+no jit: every call runs the ops on the device its tensors are on.  On the
+card ``render_frame`` replays a frame's launches from a CUDA graph
+captured on the second call of its shape (``models/frame_graph.py``).
 
 ``impl`` takes the JAX package's four values, so calls carry over:
 
@@ -47,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from tpuao_torch.models import frame_graph
 from tpuao_torch.ops import composite as C
 from tpuao_torch.ops import kernels as K
 from tpuao_torch.ops import prepare as P
@@ -263,17 +265,32 @@ def render_frame(depth, camera=None, params=None, normals=None, color=None,
     ``params.use_normals``) are channel-last (..., H, W, 3) or
     channel-first (..., 3, H, W), batched like ``depth``.  ``out_dtype``:
     ``"float32"``, ``"bfloat16"`` or ``"uint8"``.
+
+    On the card the frame's launches replay from a CUDA graph from the
+    second call of a frame shape on (``models/frame_graph``); the output
+    is bit-equal to the launches issued one by one.
     """
     with (trace.span("ao_entry.render_frame", frames=_frames(depth))
           if trace.ON else trace.OFF):
         camera = camera or CameraParams()
         params = params or AOParams()
         depth = _as_tensor(depth, device)
-        ao, debug = ao_pipeline(depth, camera, params, normals, impl=impl,
-                                all_levels=debug_outputs)
-        out = ao if color is None else C.composite(
-            _as_tensor(color, depth.device), ao)
-        out = _quantize(out, out_dtype)
+        if normals is not None and params.use_normals:
+            normals = _normals_on(normals, depth.device)
+
+        def finish(ao):
+            out = ao if color is None else C.composite(
+                _as_tensor(color, depth.device), ao)
+            return _quantize(out, out_dtype)
+
+        out = frame_graph.replay(
+            depth, normals, camera, params, impl, debug_outputs,
+            lambda d, n: ao_pipeline(d, camera, params, n, impl=impl)[0],
+            finish)
+        if out is None:
+            ao, debug = ao_pipeline(depth, camera, params, normals,
+                                    impl=impl, all_levels=debug_outputs)
+            out = finish(ao)
     return (out, debug) if debug_outputs else out
 
 
@@ -462,10 +479,11 @@ class AmbientOcclusionEngine:
     """Stateful engine: validated tunable properties, config persistence,
     a debug view, and one ``render`` per frame.
 
-    PyTorch runs eagerly, so there is no program cache: changing a tunable
-    or the frame size costs nothing.  Tensors are computed on the device
-    they are on; NumPy input goes to ``device`` (default the card, as in
-    ``render_frame``; ``device="cpu"`` for the CPU).
+    PyTorch runs eagerly, so changing a tunable or the frame size
+    compiles nothing: on the card the next frame runs eager and the one
+    after captures a CUDA graph (``render_frame``).  Tensors are computed
+    on the device they are on; NumPy input goes to ``device`` (default
+    the card, as in ``render_frame``; ``device="cpu"`` for the CPU).
     """
 
     def __init__(self, camera: CameraParams | None = None,

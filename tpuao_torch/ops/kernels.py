@@ -12,7 +12,10 @@ Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
 * a plain PyTorch version (``*_plain``), the CPU path and the reference the
   kernel is held against on the card;
 * a launch count, ``wrapper.launches``, a plain integer that the wrapper
-  adds one to where it launches its kernel and nowhere else.
+  adds one to where it launches its kernel and nowhere else -- except in
+  a ``tally_launches`` block on the launching thread (a CUDA graph's
+  capture, which runs nothing), where the launch goes to the block's
+  tally, and the graph's replays add it (``add_launches``).
 
 The render, upsample and fused wrappers pass each launch's texels a thread
 from ``utils/launch_opts.tile_rows`` (0: the launcher's own rule), and
@@ -30,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -186,6 +190,38 @@ def _tiles(kernel: str, x: torch.Tensor, h: int, w: int, call,
     return L.tile_rows(kernel, batch, h, w)
 
 
+_LOCAL = threading.local()  # .tally: the open tally_launches block's dict
+
+
+def _count(wrapper, attr: str = "launches") -> None:
+    """One launch onto ``wrapper.<attr>``, or onto this thread's tally
+    while a ``tally_launches`` block is open on it."""
+    tally = getattr(_LOCAL, "tally", None)
+    if tally is None:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    else:
+        tally[wrapper, attr] = tally.get((wrapper, attr), 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block, this thread's launches go to the dict it yields,
+    ``{(wrapper, "launches" or "raw_launches"): n}``, and not to the
+    counts; other threads' launches count as ever."""
+    prior = getattr(_LOCAL, "tally", None)
+    _LOCAL.tally = {}
+    try:
+        yield _LOCAL.tally
+    finally:
+        _LOCAL.tally = prior
+
+
+def add_launches(tally: dict) -> None:
+    """Add a ``tally_launches`` dict to the counts."""
+    for (wrapper, attr), n in tally.items():
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -231,7 +267,7 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
             _batch(lead), h, w, table.ctypes.data, len(table),
             float(params.rejection_falloff), float(params.strength), nt,
             ds.device.index, _stream(ds.device))
-    render_ao_level.launches += 1
+    _count(render_ao_level)
     return out
 
 
@@ -326,7 +362,7 @@ def render_ao_level_dma(ds: torch.Tensor, level: int, full_width: int,
             batch, h, w, dma_rows(row_tile, batch, h, w), table.ctypes.data,
             len(table), float(params.rejection_falloff),
             float(params.strength), ds.device.index, _stream(ds.device))
-    render_ao_level_dma.launches += 1
+    _count(render_ao_level_dma)
     return out
 
 
@@ -428,9 +464,9 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
             m2.ctypes.data, len(table), float(params.rejection_falloff),
             float(params.strength), float(scale), mode, nt, ds.device.index,
             _stream(ds.device))
-    render_ao_level_normals.launches += 1
+    _count(render_ao_level_normals)
     if mode == 2:
-        render_ao_level_normals.raw_launches += 1
+        _count(render_ao_level_normals, "raw_launches")
     return out
 
 
@@ -486,7 +522,7 @@ def blur_upsample_step(lo_ao: torch.Tensor, lo_d: torch.Tensor,
             out.data_ptr(), _batch(lead), lh, lw, h0, w0, float(k_blur),
             float(k_up), float(nfs), nt, lo_d.device.index,
             _stream(lo_d.device))
-    blur_upsample_step.launches += 1
+    _count(blur_upsample_step)
     return out
 
 
@@ -570,7 +606,7 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
             ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
     out = _fused_launch("tpuao_fused_render_upsample_step", dims, ds, c1,
                         hi_d, level, full_width, camera, params, nt=nt)
-    fused_render_upsample_step.launches += 1
+    _count(fused_render_upsample_step)
     return out
 
 
@@ -606,7 +642,7 @@ def fused_render_upsample_step_zc(ds: torch.Tensor, c1: torch.Tensor,
             ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)
     out = _fused_launch("tpuao_fused_render_upsample_step_zc", dims, ds, c1,
                         hi_d, level, full_width, camera, params, seg)
-    fused_render_upsample_step_zc.launches += 1
+    _count(fused_render_upsample_step_zc)
     return out
 
 
@@ -647,7 +683,7 @@ def windowed_resolve(prev_ao: torch.Tensor, prev_d: torch.Tensor,
             ip.data_ptr(), jp.data_ptr(), hist_ao.data_ptr(),
             hist_d.data_ptr(), h, w, r, prev_ao.device.index,
             _stream(prev_ao.device))
-    windowed_resolve.launches += 1
+    _count(windowed_resolve)
     return hist_ao, hist_d
 
 

@@ -281,6 +281,9 @@ def render_views_sharded(depths, camera=None, params=None, normals=None,
     shard, views that share all eight values render as one batch, so a
     uniform rig costs the launches of one batch a shard and a rig of G
     distinct views G times that.
+
+    Each batch is a ``render_frame`` call, on the card replayed from its
+    CUDA graph from the second call of its key on (``models/frame_graph``).
     """
     with (trace.span("ao_entry.render_views", frames=_frames(depths))
           if trace.ON else trace.OFF):

@@ -57,17 +57,8 @@ def sweep_tiles(fn, *args, kernel: str, batch: int, h: int, w: int,
             launch_opts.set_tuned_tiles(kernel, batch, h, w, nt)
             out[int(nt)] = float(timer(lambda: fn(*args)))
     finally:
-        _restore({key: prior})
+        launch_opts.restore_tuned_tiles({key: prior})
     return out
-
-
-def _restore(prior: dict) -> None:
-    """Put back table entries saved as ``{key: nt or None}``."""
-    for key, nt in prior.items():
-        if nt is None:
-            launch_opts._TUNED.pop(key, None)
-        else:
-            launch_opts._TUNED[key] = nt
 
 
 def launch_label(key) -> str:
@@ -154,8 +145,7 @@ def tune_frame(shape, camera=None, params=None, use_normals: bool = False,
     prior = {key: launch_opts._TUNED.get(key) for key in best}
     timed = False
     try:
-        for key in best:
-            launch_opts._TUNED.pop(key, None)
+        launch_opts.restore_tuned_tiles(dict.fromkeys(best))
         frame_default = float(timer(frame))
         for key, nt in best.items():
             launch_opts.set_tuned_tiles(*key, nt)
@@ -163,7 +153,7 @@ def tune_frame(shape, camera=None, params=None, use_normals: bool = False,
         timed = True
     finally:
         if not (timed and apply):
-            _restore(prior)
+            launch_opts.restore_tuned_tiles(prior)
     return {"pixels": h * w, "use_normals": bool(use_normals),
             "batch": batch,
             "best": {launch_label(k): nt for k, nt in best.items()},

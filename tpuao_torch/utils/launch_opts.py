@@ -47,6 +47,18 @@ SMS = 132  # H100 SXM: the rules' "every SM gets a block" (csrc/ bakes it in)
 # utils.autotune (a sweep on the card beats the hand-written rule for a
 # launch nobody timed by hand); consulted by tile_rows.
 _TUNED: dict[tuple[str, int, int, int], int] = {}
+_GEN = 0  # bumped by every change of _TUNED: a graph of a frame reads it
+
+
+def generation() -> int:
+    """A count of the table's changes (``models/frame_graph`` keys its
+    graphs on it: a changed table captures anew)."""
+    return _GEN
+
+
+def _changed() -> None:
+    global _GEN
+    _GEN += 1
 
 
 def _key(kernel: str, batch: int, h: int, w: int) -> tuple[str, int, int,
@@ -67,10 +79,23 @@ def set_tuned_tiles(kernel: str, batch: int, h: int, w: int,
         raise ValueError(f"{kernel} has no instance at nt={nt}; one of "
                          f"{VALID_NT[kernel]}")
     _TUNED[key] = int(nt)
+    _changed()
 
 
 def clear_tuned_tiles() -> None:
     _TUNED.clear()
+    _changed()
+
+
+def restore_tuned_tiles(prior: dict) -> None:
+    """Put back table entries saved as ``{key: nt or None}`` (None: no
+    entry)."""
+    for key, nt in prior.items():
+        if nt is None:
+            _TUNED.pop(key, None)
+        else:
+            _TUNED[key] = nt
+    _changed()
 
 
 def tile_rows(kernel: str, batch: int, h: int, w: int) -> int:

@@ -30,7 +30,8 @@ What each name of ``tpuao/utils/roofline.py`` became:
 * ``entry_census``, ``relayout_bytes``, ``hbm_mb``, ``cost_counts``: these
   read XLA's HLO and buffer assignment, which eager PyTorch does not have.
   Their job, a count of what a program launches, is ``launch_census``
-  (torch.profiler over a few calls: launches and device time by kernel);
+  (torch.profiler over a few calls: launches and device time by kernel;
+  ``census_by_wrapper`` sorts the frame path's launches by wrapper);
   peak memory is ``torch.cuda.max_memory_allocated``.
 
 Per-kernel work (``render_ops``, ``render_work``, ``chain_work``,
@@ -211,4 +212,25 @@ def launch_census(fn, calls: int = 20) -> dict[str, tuple[int, float]]:
                           name)[:60]
             n, ms = out.get(name, (0, 0.0))
             out[name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def census_by_wrapper(census: dict) -> dict[str, int]:
+    """``launch_census``'s launches by the wrapper of ``ops/kernels.py``
+    that owns each kernel of the frame path (``render_kernel<NP, MODE,
+    NT>`` with MODE 0 is the depth-only render); other kernels (prepare's,
+    copies) are left out.  A replayed CUDA graph calls no wrapper, so this
+    is how its launches are read from the card."""
+    out: dict[str, int] = {}
+    for name, (n, _) in census.items():
+        if "render_kernel<" in name:
+            mode = int(name.split("<")[1].split(",")[1])
+            k = "render_ao_level" if mode == 0 else "render_ao_level_normals"
+        elif "upsample_kernel<" in name:
+            k = "blur_upsample_step"
+        elif "fused_step_kernel<" in name:
+            k = "fused_render_upsample_step"
+        else:
+            continue
+        out[k] = out.get(k, 0) + n
     return out

@@ -23,7 +23,11 @@ where it has the stage):
 * ``ao_render_l{l}``, ``ao_upsample_l{l}``, ``ao_fused_l{l}``: each level's
   render and each chain step (``l`` the level read);
 * ``ao_launch``: one call into the kernel library (``ops/kernels._launch``).
-  The launches of a stage are its ``ao_launch`` children.
+  The launches of a stage are its ``ao_launch`` children;
+* ``ao_graph_capture`` and ``ao_graph_replay`` under
+  ``ao_entry.render_frame`` (``models/frame_graph``): a frame's capture
+  in a CUDA graph, which holds the stages above, and its replay, which
+  holds none (copy-in, replay, the output).
 
 Times are ``time.perf_counter_ns()``.  ``enable()`` takes one anchor pair
 ``(time.time_ns(), time.perf_counter_ns())``: torch.profiler's events are
