@@ -6,7 +6,8 @@ is a file of its own, found by the names in the root ``BENCHMARK.json``:
 
 * ``workloads/<cell>.json``: the traffic's parameters, its ``kind`` and the
   limits of the check;
-* ``configs/<config>.json``: the frame size, camera, tunables and path;
+* ``configs/<config>.json``: the frame size, camera, tunables and path,
+  and ``cards`` (1 or 4, absent 1), the cards a call's views spread over;
 * ``traffic/<kind>.py``: ``run(ctx) -> record``;
 * ``metrics/<metric>.py``: ``read(record) -> value or None``.
 
@@ -15,9 +16,10 @@ host outputs it sampled in the window under
 ``samples`` (``[(pool index, AO array)]``) and the pool of inputs under
 ``pool`` (``(depth (F, H, W), normals or None)``).  Record keys read by
 the metric readers: ``setup_s``, ``window_s``, ``frames``,
-``call_latencies_s``, ``peak_window_bytes``; in a traced run
-``host_issue_s`` and ``profile`` (``profiling.summarize`` with
-``frames``); and ``config`` and ``frame_shape``.
+``call_latencies_s``, ``peak_window_bytes`` (the fullest card's); in a
+traced run ``host_issue_s``, ``profile`` (``profiling.summarize`` with
+``frames``) and ``program_trace`` (``spans.trace_program``, None off the
+card); and ``config`` and ``frame_shape``.
 """
 
 from __future__ import annotations

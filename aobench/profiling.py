@@ -58,7 +58,8 @@ def _label_gaps(gaps, host_events):
 
 
 def _events(prof):
-    """``(name, start s, end s, on the device)`` of every recorded event,
+    """``(name, start s, end s, card)`` of every recorded event, ``card``
+    the device's index for an operation on a card and None on the host,
     read from the profiler's raw records (building its event tree takes
     minutes for a few thousand calls); the device's copies of the
     benchmark's spans are left out."""
@@ -71,7 +72,8 @@ def _events(prof):
         if on_device and (e.is_user_annotation()
                           or name.startswith(SPAN_PREFIX)):
             continue
-        yield name, e.start_ns() / 1e9, e.end_ns() / 1e9, on_device
+        yield (name, e.start_ns() / 1e9, e.end_ns() / 1e9,
+               e.device_index() if on_device else None)
 
 
 def summarize(prof, window_span: str) -> dict:
@@ -80,14 +82,16 @@ def summarize(prof, window_span: str) -> dict:
     ``window_s``: from the first start to the last end of the spans named
     ``window_span`` (e.g. ``aobench.call``); ``busy_s``: the seconds in that
     window in which any operation ran on the device (the union of the
-    device intervals); ``kernels``: ``{name: [launches, seconds]}`` of the
+    device intervals, every card's together); ``busy_s_by_card``:
+    ``{card index: seconds}``, the same union taken for each card alone;
+    ``kernels``: ``{name: [launches, seconds]}`` of the
     kernels, ``copies`` the same of the copies and fills; ``idle``: ``{label: seconds}`` of the device's idle
     gaps inside the window, each named by ``_label_gaps``.  Times are in
     seconds."""
     dev_iv, host, kernels, copies, win = [], [], {}, {}, []
-    for name, s, en, on_device in _events(prof):
-        if on_device:
-            dev_iv.append((s, en))
+    for name, s, en, card in _events(prof):
+        if card is not None:
+            dev_iv.append((s, en, card))
             table = copies if COPY_RE.match(name) else kernels
             n, t = table.get(short_name(name), (0, 0.0))
             table[short_name(name)] = (n + 1, t + (en - s))
@@ -98,9 +102,14 @@ def summarize(prof, window_span: str) -> dict:
     if not win:
         raise RuntimeError(f"no {window_span} span in the trace")
     w0, w1 = min(s for s, _ in win), max(e for _, e in win)
-    busy = _merge([(max(s, w0), min(e, w1)) for s, e in dev_iv
-                   if e > w0 and s < w1])
+    inside = [(max(s, w0), min(e, w1), c) for s, e, c in dev_iv
+              if e > w0 and s < w1]
+    busy = _merge([(s, e) for s, e, _ in inside])
     busy_s = sum(e - s for s, e in busy)
+    busy_s_by_card = {
+        c: sum(e - s for s, e in _merge([(s, e) for s, e, d in inside
+                                         if d == c]))
+        for c in sorted({c for _, _, c in inside})}
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges), 2)
             if edges[i + 1] > edges[i]]
@@ -109,6 +118,7 @@ def summarize(prof, window_span: str) -> dict:
                              _label_gaps(gaps, host)):
         idle[label] = idle.get(label, 0.0) + (e - s)
     return {"window_s": w1 - w0, "busy_s": busy_s,
+            "busy_s_by_card": busy_s_by_card,
             "kernels": {k: [n, t] for k, (n, t) in kernels.items()},
             "copies": {k: [n, t] for k, (n, t) in copies.items()},
             "idle": idle}

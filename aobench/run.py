@@ -7,8 +7,10 @@ Each run is a new process: it loads, warms up, measures for ``--seconds``
 and prints one JSON object as the last line of standard output, with the
 numbers it checked, each beside its limit, as the last lines of standard
 error.  It exits with another code than 0, and prints no result, where the
-card or the program is missing, where the cell asks for more cards than
-there are, or where a JAX module was loaded.
+cell's chips in ``BENCHMARK.json`` differ from its configuration's
+``cards`` (checked before it looks for a card), where the card or the
+program is missing, where the cell asks for more cards than there are, or
+where a JAX module was loaded.
 """
 
 from __future__ import annotations
@@ -53,7 +55,13 @@ def main(argv=None) -> int:
     _environment()
     from aobench import harness
 
-    cell = harness.load_cell(args.workload)[0]
+    cell, _, config = harness.load_cell(args.workload)
+    cards = config.get("cards", 1)
+    if cell["chips"] != cards:
+        print(f"aobench: {args.workload} asks for {cell['chips']} chips, its "
+              f"configuration {config['name']} for {cards} cards",
+              file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():

@@ -29,18 +29,18 @@ so the host times of the readers (``entry_self_ms``, ``prepare_host_ms``,
 ``wrapper_host_ms``) come from the pass without it; ``issue_idle_ms``
 comes from the profiled one.
 
-``program_trace(rec)`` is what the readers of these metrics call: a traced
-run on the card makes this phase once, after the window and the check,
-with the cell's engine and pool built anew, and keeps it in the record.  A
-program without ``tpuao_torch.utils.trace`` has no spans to read: nothing
+The frame loop of a traced run (``frameloop.run``) makes this phase once,
+after the window and its profiled calls, on the window's own call (its
+engine, pool and mesh), keeps it in the record and prints it as the
+``program_trace`` line on standard error; ``program_trace(rec)`` is what
+the readers of these metrics call.  Off the card, and with a program
+without ``tpuao_torch.utils.trace``, there are no spans to read: nothing
 is run and every reader finds nothing.
 """
 
 from __future__ import annotations
 
-import json
 import re
-import sys
 import time
 
 from aobench import device as D
@@ -55,7 +55,6 @@ STAGE = re.compile(r"^ao_(render|upsample|fused)_l\d+$")
 # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, ...):
 # their correlation ids are the device records'; a torch op's are its own
 RUNTIME = re.compile(r"^cu(da)?[A-Z]")
-SEED = 1  # the phase's own pool: the seed changes what is drawn, not work
 
 
 def events(prof):
@@ -173,24 +172,25 @@ def join(spans, anchor, evs, dropped: int = 0) -> dict | None:
             "busy_ms": busy_ns * ms}
 
 
-def trace_program(call, n: int, k0: int, dev: str) -> dict | None:
+def trace_program(call, n: int, k0: int, mesh) -> dict | None:
     """Calls ``k0 .. k0 + n - 1`` run twice with the program's tracing on:
     first without the profiler, timing each call to its return on the
-    host clock and synchronising after it (``host``), then under
-    torch.profiler, each call a span ``aobench.call`` holding
-    ``aobench.entry`` and ``aobench.sync`` (as ``frameloop.profile_calls``
-    runs them), read by ``join``.  ``join``'s reading with ``host`` in it;
-    None where the program has no spans."""
+    host clock and synchronising every card of ``mesh`` after it
+    (``host``), then under torch.profiler, each call a span
+    ``aobench.call`` holding ``aobench.entry`` and ``aobench.sync`` (as
+    ``frameloop.profile_calls`` runs them), read by ``join``.  ``join``'s
+    reading with ``host`` in it; None off the card, or where the program
+    has no spans."""
+    if not D.cards(mesh):
+        return None
     try:
         from tpuao_torch.utils import trace
     except ImportError:
         return None
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    acts = [ProfilerActivity.CPU]
-    if dev.startswith("cuda"):
-        acts.append(ProfilerActivity.CUDA)
-    D.sync(dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    D.sync(mesh)
     entry_ns = 0
     trace.enable()
     try:
@@ -198,7 +198,7 @@ def trace_program(call, n: int, k0: int, dev: str) -> dict | None:
             t0 = time.perf_counter_ns()
             out = call(k)
             entry_ns += time.perf_counter_ns() - t0
-            D.sync(dev)
+            D.sync(mesh)
             del out
     finally:
         trace.disable()
@@ -211,7 +211,7 @@ def trace_program(call, n: int, k0: int, dev: str) -> dict | None:
                     with record_function("aobench.entry"):
                         out = call(k)
                     with record_function("aobench.sync"):
-                        D.sync(dev)
+                        D.sync(mesh)
                     del out
     finally:
         trace.disable()
@@ -223,85 +223,6 @@ def trace_program(call, n: int, k0: int, dev: str) -> dict | None:
 
 
 def program_trace(rec: dict) -> dict | None:
-    """``rec["program_trace"]``, made by the first reader that asks: on
-    the card, with a program that has spans, in a traced record of a frame
-    cell.  Its per-span table goes to standard error."""
-    if "program_trace" not in rec:
-        rec["program_trace"] = _run_phase(rec)
-    return rec["program_trace"]
-
-
-def _workload(rec: dict):
-    """The workload file of the cell that made ``rec``: the one cell of
-    its configuration whose views a call match the record's; raise
-    ``LookupError`` where none or more than one does."""
-    from aobench import harness
-
-    per_call = rec["frames"] // max(rec["calls"], 1)
-    found = []
-    for cell in harness.spec()["workloads"]:
-        if cell["config"] != rec["config"]["name"]:
-            continue
-        wl = harness.load_json(harness.AOB / "workloads"
-                               / f"{cell['name']}.json")
-        if max(wl.get("views", 0), 1) == per_call:
-            found.append(wl)
-    if len(found) != 1:
-        # two cells of one configuration and views a call cannot be told
-        # apart here: the phase belongs in the traffic's own loop
-        raise LookupError(
-            f"{len(found)} cells of configuration {rec['config']['name']} "
-            f"send {per_call} frames a call: {[w['name'] for w in found]}")
-    return found[0]
-
-
-def cell_call(wl: dict, cfg: dict, shape, dev: str, seed: int = SEED):
-    """``(call, n)``: the call ``k -> output`` of a frame cell (its
-    workload file ``wl``, configuration ``cfg``, frame ``shape``) on a
-    dolly pool made from ``seed`` on ``dev``, as its loop calls the engine,
-    and the count of distinct calls the pool holds."""
-    from aobench.scenes import dolly_pool
-
-    views = wl.get("views", 0)
-    depth, normals = dolly_pool(
-        *shape, wl["pool"], seed, cfg["camera"], dev,
-        n_spheres=wl["n_spheres"], dolly_step=wl["dolly_step"],
-        with_normals=cfg["ao"]["use_normals"])
-    engine = D.engine_of(cfg, dev)
-    n = wl["pool"] // max(views, 1)
-
-    def call(k):
-        i = k % n
-        if views == 0:
-            return engine.render(
-                depth[i], normals=None if normals is None else normals[i])
-        sl = slice(i * views, (i + 1) * views)
-        return engine.render_views(
-            depth[sl], normals=None if normals is None else normals[sl])
-
-    return call, n
-
-
-def _run_phase(rec: dict) -> dict | None:
-    if (rec.get("device", {}).get("platform") != "gpu"
-            or "profile" not in rec or not rec.get("calls")):
-        return None
-    try:
-        import tpuao_torch.utils.trace  # noqa: F401
-    except ImportError:
-        return None
-    import torch
-
-    wl = _workload(rec)
-    t0 = time.perf_counter()
-    call, n = cell_call(wl, rec["config"], rec["frame_shape"], "cuda")
-    for k in range(n):  # the shapes are warm: the window ran them
-        call(k)
-    res = trace_program(call, wl["trace_calls"], n, "cuda")
-    del call
-    torch.cuda.empty_cache()
-    if res is not None:
-        res["seconds"] = time.perf_counter() - t0
-        print("program_trace " + json.dumps(res, sort_keys=True),
-              file=sys.stderr)
-    return res
+    """The record's program trace, which the frame loop of a traced run
+    made (``frameloop.run``); None without one."""
+    return rec.get("program_trace")

@@ -5,6 +5,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -82,11 +83,24 @@ def test_every_cell_file_loads(cell):
     assert wl["name"] == cell and wl["config"] == entry["config"]
     assert cfg["name"] == entry["config"]
     assert (AOB / "traffic" / f"{wl['kind']}.py").is_file()
-    assert len(entry["why"]) <= 200 and entry["chips"] == 1
+    assert len(entry["why"]) <= 200
+    # four chips only for a configuration of four cards whose traffic
+    # sends views for the mesh to spread; every other cell takes one
+    assert entry["chips"] == cfg.get("cards", 1)
+    if entry["chips"] != 1:
+        assert entry["chips"] == 4 and wl.get("views", 0) > 0
     assert 0 < wl["check"]["max_abs_err"] < 1e-2
     e2e = harness.metrics_for(BENCH, cell, False)
     assert "setup_s" in {m["name"] for m in e2e} and len(e2e) >= 2
     assert harness.metrics_for(BENCH, cell, True)
+
+
+def test_four_chip_cells_are_few():
+    """At most one cell on four chips, or a quarter of the cells rounded
+    down where that is more."""
+    chips = [c["chips"] for c in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
 
 
 @pytest.mark.parametrize("path", sorted((AOB / "workloads").glob("*.json")),
@@ -104,6 +118,7 @@ def test_every_config_file_loads(cfg):
     from aobench.reference.params import from_config
 
     c = json.loads(cfg.read_text())
+    assert c.get("cards", 1) in (1, 4)
     entry = {x["name"]: x for x in BENCH["configs"]}[c["name"]]
     assert entry["file"] == f"aobench/configs/{cfg.name}"
     params, camera = from_config(c)
@@ -149,3 +164,27 @@ def test_run_without_a_card_prints_no_result():
     if "no CUDA device" not in out.stderr:
         pytest.skip("this machine has a card")
     assert out.returncode != 0 and out.stdout == ""
+
+
+@pytest.mark.parametrize("chips,cards", [(4, 1), (1, 4)])
+def test_run_refuses_chips_unlike_the_cards(tmp_path, chips, cards):
+    """A cell whose chips differ from its configuration's cards exits 2
+    with no result, before any look for a card: a checkout of only the
+    benchmark's files, with the rig cell or its configuration changed."""
+    shutil.copytree(AOB, tmp_path / "aobench",
+                    ignore=shutil.ignore_patterns("out", "__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for c in bench["workloads"]:
+        if c["name"] == "high_1080p.rig8":
+            c["chips"] = chips
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cfg = tmp_path / "aobench" / "configs" / "high_1080p.json"
+    cfg.write_text(json.dumps({**json.loads(cfg.read_text()),
+                               "cards": cards}))
+    out = subprocess.run(
+        [sys.executable, "aobench/run.py", "--workload", "high_1080p.rig8",
+         "--seed", "1", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode == 2 and out.stdout == ""
+    assert f"asks for {chips} chips" in out.stderr
+    assert f"for {cards} cards" in out.stderr

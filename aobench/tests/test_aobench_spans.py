@@ -143,18 +143,42 @@ def test_readers_sum_their_spans():
                 {"program_trace": None}) is None
 
 
-def test_the_phase_finds_exactly_one_cell(monkeypatch):
-    """The phase picks the cell by configuration and views a call, and
-    refuses a record that no cell, or more than one, matches."""
-    rig = {"config": {"name": "high_1080p"}, "frames": 80, "calls": 10}
-    assert spans._workload(rig)["name"] == "high_1080p.rig8"
-    stream = {"config": {"name": "high_1080p"}, "frames": 10, "calls": 10}
-    assert spans._workload(stream)["name"] == "high_1080p.stream"
-    with pytest.raises(LookupError, match="0 cells"):
-        spans._workload({**rig, "frames": 40})
-    bench = harness.spec()
-    twin = bench["workloads"][0]  # a second cell like the 1080p stream
-    monkeypatch.setattr(harness, "spec", lambda: {
-        **bench, "workloads": bench["workloads"] + [twin]})
-    with pytest.raises(LookupError, match="2 cells"):
-        spans._workload(stream)
+def test_each_cell_keeps_the_trace_its_own_loop_made(monkeypatch):
+    """Two cells of one configuration and one count of views a call (the
+    1080p stream and a twin of it on another scene) each keep the program
+    trace that their own loop made, on their own call after the window
+    and its profiled calls; a record without one reads None."""
+    import time
+
+    import torch
+
+    from aobench import device as D
+    from aobench import frameloop
+
+    made = []
+
+    def fake(call, n, k0, mesh):
+        made.append(call(k0))
+        return {"n": n, "k0": k0, "mesh": mesh, "out": len(made) - 1}
+
+    monkeypatch.setattr(spans, "trace_program", fake)
+    _, wl, cfg = harness.load_cell("high_1080p.stream")
+    quick = {**wl, "warmup_calls": 2, "samples": 1, "trace_calls": 3}
+    twin = {**quick, "name": "high_1080p.twin", "n_spheres": 3,
+            "dolly_step": 0.2, "trace_calls": 4}
+    outs = []
+    for w in (quick, twin):
+        ctx = harness.Context(cell=w["name"], workload=w, config=cfg,
+                              seed=2**31 + 3, seconds=0.2, trace=True,
+                              device="cpu", t0=time.perf_counter(),
+                              shape=(32, 64))
+        rec = frameloop.run(ctx, views=0)
+        pt = spans.program_trace(rec)
+        assert pt["n"] == w["trace_calls"] and pt["mesh"] == ("cpu",)
+        assert pt["k0"] == rec["calls"] + w["trace_calls"]
+        depth = rec["pool"][0][pt["k0"] % w["pool"]]
+        out = made[pt["out"]]
+        assert torch.equal(out, D.engine_of(cfg, "cpu").render(depth))
+        outs.append(out)
+    assert not torch.equal(*outs)
+    assert spans.program_trace({"calls": 10}) is None
