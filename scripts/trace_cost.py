@@ -2,9 +2,12 @@
 
     python3 scripts/trace_cost.py [--cells high_1080p.stream,...]
         [--pairs 30] [--calls 200]
+    python3 scripts/trace_cost.py --cells high_1080p_x4.rig8   # four cards
 
-For each benchmark cell named (``aobench/``, its engine and pool made as
-its runs make them, seed 1), in one process on the card: blocks of
+For each benchmark cell named (``aobench/``, its engine, pool and mesh
+made as its runs make them, seed 1), in one process on the card(s) (a
+cell of four cards needs four; every card of the mesh is synchronised
+after each call): blocks of
 ``--calls`` calls with the program's tracing off and on, alternated (off
 first in even pairs, on first in odd ones), no profiler.  A call's host
 issue time runs from the call to its return, before the synchronise, as
@@ -29,16 +32,19 @@ sys.path.insert(0, str(ROOT))
 
 
 def _cell_call(name: str):
-    """The cell's call ``k -> output`` on the card, warmed up."""
+    """The cell's call ``k -> output`` as its runs send it
+    (``aobench.frameloop.Cell``: its engine, pool and mesh), warmed up."""
     from aobench import device as D
-    from aobench import harness, spans
+    from aobench import frameloop, harness
 
     _, wl, cfg = harness.load_cell(name)
-    call, _ = spans.cell_call(
-        wl, cfg, (cfg["frame"]["height"], cfg["frame"]["width"]), "cuda")
-    for k in range(wl["warmup_calls"]):
+    ctx = harness.Context(cell=name, workload=wl, config=cfg, seed=1,
+                          seconds=0.0, trace=False, device="cuda",
+                          t0=time.perf_counter())
+    call = frameloop.Cell(ctx, wl.get("views", 0))
+    for k in range(max(wl["warmup_calls"], call.n_inputs)):
         call(k)
-    D.sync("cuda")
+    D.sync(call.mesh)
     return call
 
 
@@ -66,8 +72,7 @@ def _site_us(traced: bool, n: int = 10_000) -> float:
 def _block(call, calls: int, traced: bool) -> tuple[float, int]:
     """Median host issue ms a call over one block, and the spans a call
     (0 untraced)."""
-    import torch
-
+    from aobench import device as D
     from tpuao_torch.utils import trace
 
     if traced:
@@ -78,7 +83,7 @@ def _block(call, calls: int, traced: bool) -> tuple[float, int]:
             t0 = time.perf_counter()
             out = call(k)
             issue.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
+            D.sync(call.mesh)
             del out
     finally:
         trace.disable()
@@ -103,6 +108,8 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     import torch
 
+    from aobench import device as D
+
     if not torch.cuda.is_available():
         print("trace_cost: no CUDA device", file=sys.stderr)
         return 2
@@ -122,6 +129,7 @@ def main(argv=None) -> int:
                 n_spans = max(n_spans, n)
         print(json.dumps({
             "cell": name, "device": torch.cuda.get_device_name(),
+            "cards": len(D.cards(call.mesh)),
             "calls_a_block": a.calls, "off_ms": off, "on_ms": on,
             "off": _summary(off), "on": _summary(on),
             "on_minus_off_ms": [y - x for x, y in zip(off, on)],

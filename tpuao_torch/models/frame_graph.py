@@ -37,9 +37,10 @@ copies its depth and normals into the static inputs on the current
 stream, replays, hands back a fresh output (the composite or quantise
 makes one, else a clone) and records the event, which the next call
 waits on, so two threads on two streams never share the buffers at once.
-The cache is an LRU of at most ``MAX_ENTRIES`` entries and at most an
-eighth of the card's memory in their pools (``pool_bytes()``); an
-evicted graph is freed when its last replay lets go of it.
+The cache is an LRU of at most ``MAX_ENTRIES`` entries, whose pools on
+each card hold at most an eighth of that card's memory (``pool_bytes()``
+sums them over every card); an evicted graph is freed when its last
+replay lets go of it.
 
 A capture launches nothing, so the wrappers count its launches into the
 capturing thread's tally (``ops/kernels.tally_launches``), and each
@@ -73,7 +74,7 @@ class _Entry:
     """One captured frame program and its static buffers."""
 
     __slots__ = ("graph", "depth", "normals", "ao", "launches", "nbytes",
-                 "lock", "done")
+                 "lock", "done", "device")
 
     def __init__(self, graph, depth, normals, ao, launches, nbytes):
         self.graph = graph
@@ -195,16 +196,24 @@ def _mark(key, state) -> None:
 
 
 def _insert(key, entry: _Entry, device) -> None:
-    """Add ``entry`` as the most recent, then evict the least recent
-    entries while the cache holds more than ``MAX_ENTRIES`` or its pools
-    more than its share of the card (the newest always stays).  An
+    """Add ``entry``, captured on ``device``, as the most recent, then
+    evict the least recent entries while the cache holds more than
+    ``MAX_ENTRIES``, and the least recent entries on ``device`` while
+    their pools hold more than its share of that card: one card's pools
+    never evict another card's graphs (the newest always stays).  An
     evicted key runs eager from then on."""
+    entry.device = device
     _entries[key] = entry
-    bound = _bound(device)
-    while len(_entries) > 1 and (
-            len(_entries) > MAX_ENTRIES
-            or sum(e.nbytes for e in _entries.values()) > bound):
+    while len(_entries) > MAX_ENTRIES:
         _mark(_entries.popitem(last=False)[0], "evicted")
+    mine = [k for k, e in _entries.items() if e.device == device]
+    held = sum(_entries[k].nbytes for k in mine)
+    bound = _bound(device)
+    for k in mine[:-1]:
+        if held <= bound:
+            break
+        held -= _entries.pop(k).nbytes
+        _mark(k, "evicted")
 
 
 def _entry_for(key, depth, normals, program):

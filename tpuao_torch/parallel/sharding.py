@@ -20,11 +20,19 @@ The kernels take the tunables as scalar arguments and the per-level pair
 tables as launch parameters, so one launch set serves every view that
 shares them: a camera rig renders one batch per distinct set of its eight
 per-view values on each device.
+
+The mesh path records spans when the port's tracing is on
+(``utils/trace``): ``ao_scatter`` around each device's shard copies and
+``ao_gather`` around the gather and the crop, both under
+``ao_entry.render_views``.  ``mesh_counts()`` counts, always, the calls,
+frames and shards of ``render_views_sharded`` and the bytes that
+``_to`` copied between two distinct devices.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -42,6 +50,32 @@ VIEW_AXIS = "views"
 RIG_CAMERA_FIELDS = ("near", "far", "tan_half_fov_h")
 RIG_PARAM_FIELDS = ("noise_filter_tolerance", "blur_tolerance",
                     "upsample_tolerance", "rejection_falloff", "strength")
+
+_tally = threading.Lock()  # guards the counts
+_counts = dict.fromkeys(("calls", "frames", "shards", "peer_bytes"), 0)
+
+
+def mesh_counts() -> dict:
+    """``{"calls", "frames", "shards", "peer_bytes"}`` since the last
+    ``_clear()``: ``render_views_sharded``'s calls, their views (before
+    padding) and the shards they rendered (one a device of the mesh), and
+    the bytes that ``_to`` copied between two distinct devices, inputs and
+    outputs alike (the spatial, grid and temporal fleet modes' copies
+    too).  A mesh that names one device several times copies none."""
+    with _tally:
+        return dict(_counts)
+
+
+def _clear() -> None:
+    """Zero the counts (tests)."""
+    with _tally:
+        _counts.update(dict.fromkeys(_counts, 0))
+
+
+def _count(**by) -> None:
+    with _tally:
+        for k, v in by.items():
+            _counts[k] += v
 
 
 def pad_leading(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -150,7 +184,10 @@ def _to(x: torch.Tensor, dev) -> torch.Tensor:
     """``x`` on ``dev``, without a host synchronisation where the copy
     lands on a card (a copy to the host waits for its data)."""
     dev = torch.device(dev)
-    return x.to(dev, non_blocking=dev.type == "cuda")
+    y = x.to(dev, non_blocking=dev.type == "cuda")
+    if y.device != x.device:
+        _count(peer_bytes=x.numel() * x.element_size())
+    return y
 
 
 def _shard(x, sl: slice, dev):
@@ -296,6 +333,7 @@ def render_views_sharded(depths, camera=None, params=None, normals=None,
         kw = dict(impl=impl, out_dtype=out_dtype,
                   debug_outputs=debug_outputs)
         n_dev = len(devices)
+        _count(calls=1, frames=n, shards=n_dev)
         if n_dev == 1:
             return _render_local(depths, camera, params, normals, color, rig,
                                  kw)
@@ -310,13 +348,16 @@ def render_views_sharded(depths, camera=None, params=None, normals=None,
         for i, dev in enumerate(devices):
             sl = slice(i * k, (i + 1) * k)
             with _on_device(dev):
+                with trace.span("ao_scatter") if trace.ON else trace.OFF:
+                    d, nrm, col = (_shard(x, sl, dev)
+                                   for x in (depths, normals, color))
                 parts.append(_render_local(
-                    _shard(depths, sl, dev), camera, params,
-                    _shard(normals, sl, dev), _shard(color, sl, dev),
+                    d, camera, params, nrm, col,
                     None if rig is None else rig[sl], kw))
-        res = _gather(parts, devices[0])
-        out, dbg = res if debug_outputs else (res, None)
-        out = out[:n] if pad else out
+        with trace.span("ao_gather") if trace.ON else trace.OFF:
+            res = _gather(parts, devices[0])
+            out, dbg = res if debug_outputs else (res, None)
+            out = out[:n] if pad else out
         return (out, dbg) if debug_outputs else out
 
 

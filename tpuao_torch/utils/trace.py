@@ -27,7 +27,12 @@ where it has the stage):
 * ``ao_graph_capture`` and ``ao_graph_replay`` under
   ``ao_entry.render_frame`` (``models/frame_graph``): a frame's capture
   in a CUDA graph, which holds the stages above, and its replay, which
-  holds none (copy-in, replay, the output).
+  holds none (copy-in, replay, the output);
+* ``ao_scatter`` and ``ao_gather`` under ``ao_entry.render_views``
+  (``parallel/sharding.render_views_sharded`` over a mesh of more than
+  one device): one device's shard copies (one a device a call, before
+  that device's ``ao_entry.render_frame``), and the gather of the shards'
+  results on the mesh's first device with the crop of the padding.
 
 Times are ``time.perf_counter_ns()``.  ``enable()`` takes one anchor pair
 ``(time.time_ns(), time.perf_counter_ns())``: torch.profiler's events are
