@@ -14,14 +14,23 @@ Phases, one or more lines each:
               card, at the 1080p main path's shapes (max_abs_err <= 1e-5);
 4. slice   -- ``render_frame`` on a batch of four 1080p frames under
               ``impl="auto"`` (the main path; its launch counts must be
-              render 1, upsample 1, fused 3) and ``"pallas"``, held against
-              ``impl="jnp"``; the same call replayed from its CUDA graph
+              prologue 1, render 1, upsample 1, fused 3) and ``"pallas"``,
+              held against ``impl="jnp"``; the same call replayed from its
+              CUDA graph
               (``models/frame_graph``: captured on the second call),
               bit-equal to the first and held against ``"jnp"``, its
               launches read from the card's kernel records; one 4K frame;
               uint8 output and composite;
 5. times   -- ms per 1080p frame for auto / pallas / jnp, and each
               kernel's time beside its plain version's;
+5b. prologue -- the prologue kernel (``csrc/prepare.cu``) against its
+              plain ops bit for bit (NaN positions too) on hardware depth
+              at 1080p, 8 x 1080p and 4K with channel-last normals, and on
+              depth 0, 1 and NaN, n_z <= 0.05 and NaN normals in every
+              depth mode, depths 1 and 4 and both normals layouts; its
+              device and event times at the three cell shapes beside the
+              plain ops' and its byte bound (a JSON line
+              ``{"prologue": [...]}``);
 6. normals and windowed kernels against their plain versions on the card:
               the normals render at levels 1-4 of a 1080p scene in both
               ABIs (slope planes, raw normals) and at levels 1-4 of a 4K
@@ -193,12 +202,13 @@ import time
 
 from tpuao_torch.utils.roofline import (WINDOWED_OPS, bound,
                                         census_by_wrapper, chain_work,
-                                        launch_census, render_work)
+                                        launch_census, prepare_work,
+                                        render_work)
 
 TOL = 1e-5  # kernel vs plain version, both float32 on the card
 RTOL_NULL_DEPTH = 1e-6  # history depth of a null history (1e6 in float32)
 SEED = 7
-COUNT_KEYS = ("render_ao_level", "render_ao_level_normals",
+COUNT_KEYS = ("prepare_levels", "render_ao_level", "render_ao_level_normals",
               "blur_upsample_step", "fused_render_upsample_step",
               "windowed_resolve", "render_ao_level_dma",
               "fused_render_upsample_step_zc")
@@ -355,6 +365,123 @@ def expect_counts(K, label: str, want: dict) -> None:
         raise RuntimeError(f"{label}: launches {got} != {want}")
 
 
+def same_bits(label: str, got, want) -> None:
+    """Raise unless ``got`` equals ``want`` value for value with NaN at the
+    same texels (a dense float32 output)."""
+    import torch
+
+    if (got.shape != want.shape or got.dtype != torch.float32
+            or not got.is_contiguous()):
+        raise RuntimeError(f"{label}: {got.dtype} {tuple(got.shape)} "
+                           f"(contiguous {got.is_contiguous()}) against "
+                           f"{tuple(want.shape)}")
+    nan = torch.isnan(got)
+    if not (torch.equal(nan, torch.isnan(want))
+            and torch.equal(got[~nan], want[~nan])):
+        raise RuntimeError(f"{label}: differs from the plain ops")
+
+
+def phase_prologue(chk, dev, K, F, card):
+    """5b. The prologue kernel (``csrc/prepare.cu``) against its plain ops,
+    bit for bit, NaN positions too: hardware depth at 1080p, 8 x 1080p
+    and 4K with channel-last normals (the cells' inputs), then special
+    values (depth 0, 1 and NaN, n_z <= 0.05, NaN normals) in every depth
+    mode and both normals layouts at 1000x1900; each cell shape timed by
+    graph replay and events beside the plain ops and the byte bound.
+    Returns ``{"prepare": (event ms, plain event ms, graph ms)}`` of the
+    4K frame."""
+    import numpy as np
+    import torch
+
+    from tpuao_torch.ops import prepare as P
+    from tpuao_torch.params import CameraParams, padded_shape
+    from tpuao_torch.utils.timing import cuda_graph_ms, cuda_time_ms
+
+    print(f"prologue (csrc/prepare.cu) vs plain ops [{card}]:")
+    cam = CameraParams()
+
+    def scene(batch, h, w):
+        zn = [F.spheres_on_plane(h, w, cam, seed=SEED + s, with_normals=True)
+              for s in range(batch)]
+        z = np.stack([F.to_hardware_depth(a, cam) for a, _ in zn])
+        n = np.stack([b for _, b in zn])
+        z = torch.as_tensor(z.astype(np.float32), device=dev)
+        n = torch.as_tensor(n.astype(np.float32), device=dev)
+        return (z[0], n[0]) if batch == 1 else (z, n)
+
+    def check(label, z, c, d, nrm):
+        hp, wp = padded_shape(*z.shape[-2:])
+        K.reset_launch_counts()
+        got = K.prepare_levels(z, c, d, hp, wp, nrm)
+        expect_counts(K, f"prologue {label}", counts(prepare_levels=1))
+        want = P.prepare_levels_plain(z, c, d, hp, wp, nrm)
+        for l in range(d + 1):
+            same_bits(f"{label} level {l}", got[0][l], want[0][l])
+            if nrm is not None and l:
+                for g, w in zip(got[1][l], want[1][l]):
+                    same_bits(f"{label} slopes {l}", g, w)
+        return hp, wp
+
+    rows = []
+    for label, batch, (h, w), normals in (
+            ("1080p", 1, (1080, 1920), False),
+            ("8x1080p", 8, (1080, 1920), False),
+            ("4K normals", 1, (2160, 3840), True)):
+        z, n = scene(batch, h, w)
+        n = n if normals else None
+        hp, wp = check(label, z, cam, 4, n)
+        kern = lambda: K.prepare_levels(z, cam, 4, hp, wp, n)  # noqa: E731
+        plain = lambda: P.prepare_levels_plain(  # noqa: E731
+            z, cam, 4, hp, wp, n)
+        b_ms, b_by = bound(*prepare_work(batch, h, w, 4, normals))
+        r = {"shape": label, "ms": cuda_graph_ms(kern),
+             "event_ms": cuda_time_ms(kern),
+             "plain_ms": cuda_graph_ms(plain),
+             "plain_event_ms": cuda_time_ms(plain), "bound_ms": b_ms,
+             "bound_by": b_by,
+             "bound_mb": prepare_work(batch, h, w, 4, normals)[1] / 1e6}
+        # a call whose bytes fit in the 50 MB L2 finds them there, left by
+        # the graph's previous rep: its time is no share of the HBM bound
+        r["share_pct"] = (100.0 * b_ms / r["ms"] if r["bound_mb"] > 50.0
+                          else None)
+        rows.append(r)
+        share = ("warm L2" if r["share_pct"] is None else
+                 f"{r['share_pct']:.1f} % of it")
+        print(f"  {label}: bit-equal; kernel {r['ms']:.4f} ms (device, "
+              f"graph replay), {r['event_ms']:.4f} ms (events); plain ops "
+              f"{r['plain_ms']:.4f} ms (device), {r['plain_event_ms']:.4f} "
+              f"ms (events); bound {b_ms:.4f} ms ({r['bound_mb']:.2f} MB, "
+              f"{b_by}), {share} [{card}]", flush=True)
+        del z, n
+    rng = np.random.default_rng(SEED)
+    z = rng.uniform(0.0, 1.0, (2, 1000, 1900)).astype(np.float32)
+    nrm = rng.uniform(-1.0, 1.0, (2, 1000, 1900, 3)).astype(np.float32)
+    for v in (0.0, 1.0, np.nan):
+        z.reshape(-1)[rng.integers(0, z.size, 11)] = v
+    nrm.reshape(-1, 3)[rng.integers(0, z.size, 11), 2] = 0.05
+    nrm.reshape(-1, 3)[rng.integers(0, z.size, 11),
+                       rng.integers(0, 3, 11)] = np.nan
+    z = torch.as_tensor(z, device=dev)
+    ncl = torch.as_tensor(nrm, device=dev)
+    ncf = ncl.movedim(-1, -3).contiguous()
+    modes = {"reversed": cam,
+             "forward": CameraParams(reversed_z=False, near=0.3, far=40.0),
+             "linear": CameraParams(depth_mode="linear")}
+    for mode, c in modes.items():
+        for d in (1, 4):
+            for layout, n in (("none", None), ("channel-last", ncl),
+                              ("channel-first", ncf)):
+                check(f"1000x1900 x2 {mode} d={d} normals {layout}", z, c,
+                      d, n)
+    print(f"  special values: depth 0, 1, NaN, n_z 0.05 and NaN normals, "
+          f"{len(modes) * 6} cases bit-equal", flush=True)
+    print(json.dumps({"prologue": rows}))
+    chk.worst["prepare"] = 0.0  # every check above is bit for bit
+    four_k = rows[-1]
+    return {"prepare": (four_k["event_ms"], four_k["plain_event_ms"],
+                        four_k["ms"])}
+
+
 def phase_new_kernels(chk, dev, K, P, R, T, F, cam, h0, w0, hp, wp):
     """6. The normals render (both ABIs) and the windowed resolve against
     their plain versions at the shapes the 1080p paths give them."""
@@ -457,13 +584,15 @@ def phase_engine(chk, dev, K, F, cam, h0, w0):
     main_counts = K.launch_counts()
     print(f"  main path, batch (4, {h0}, {w0}) ULTRA auto: launches "
           f"{main_counts}")
-    expect_counts(K, "ULTRA auto", counts(render_ao_level_normals=4,
+    expect_counts(K, "ULTRA auto", counts(prepare_levels=1,
+                                          render_ao_level_normals=4,
                                           blur_upsample_step=4))
     if K.render_ao_level_normals.raw_launches != 0:
         raise RuntimeError("ULTRA auto took the raw-normals ABI")
     K.reset_launch_counts()
     out_pallas = engines["pallas"].render(z4, normals=n4)
-    expect_counts(K, "ULTRA pallas", counts(render_ao_level_normals=4,
+    expect_counts(K, "ULTRA pallas", counts(prepare_levels=1,
+                                            render_ao_level_normals=4,
                                             blur_upsample_step=4))
     if K.render_ao_level_normals.raw_launches != 4:
         raise RuntimeError("ULTRA pallas did not take the raw-normals ABI "
@@ -538,11 +667,12 @@ def phase_temporal(chk, dev, K, F, cam, h0, w0):
     frames, views = dolly_frames(F, cam, h0, w0, t_n)
     dz = [torch.as_tensor(z, device=dev) for z, _ in frames]
     dn = [torch.as_tensor(n, device=dev) for _, n in frames]
-    high = {0: counts(render_ao_level=1, blur_upsample_step=1,
-                      fused_render_upsample_step=3),
-            1: counts(render_ao_level=2, blur_upsample_step=2,
-                      fused_render_upsample_step=2)}
-    ultra = counts(render_ao_level_normals=4, blur_upsample_step=4)
+    high = {0: counts(prepare_levels=1, render_ao_level=1,
+                      blur_upsample_step=1, fused_render_upsample_step=3),
+            1: counts(prepare_levels=1, render_ao_level=2,
+                      blur_upsample_step=2, fused_render_upsample_step=2)}
+    ultra = counts(prepare_levels=1, render_ao_level_normals=4,
+                   blur_upsample_step=4)
     main_total = None
     # a static camera over a noisy depth buffer, and a 1.5-pixel pan given
     # as motion vectors
@@ -1078,7 +1208,7 @@ def phase_cli(chk, dev, K, F, card, tmp):
     path.write_text(json.dumps([v.ravel().tolist() for v in views]))
     on = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     d = on(zh)
-    high = counts(render_ao_level=1, blur_upsample_step=1,
+    high = counts(prepare_levels=1, render_ao_level=1, blur_upsample_step=1,
                   fused_render_upsample_step=3)
 
     cli_counts(K, "frame (depth.pfm -> ao.pfm)", high,
@@ -1097,7 +1227,8 @@ def phase_cli(chk, dev, K, F, card, tmp):
               render_frame(d, cam_hw, AOParams(),
                            color=on(rgb.astype(np.float32) / 255.0)),
               tol=0.0)
-    cli_counts(K, "ULTRA --normals", counts(render_ao_level_normals=4,
+    cli_counts(K, "ULTRA --normals", counts(prepare_levels=1,
+                                            render_ao_level_normals=4,
                                             blur_upsample_step=4),
                ["render", depth, tmp / "aon.pfm", "--preset", "ULTRA",
                 "--normals", nrm])
@@ -1106,9 +1237,10 @@ def phase_cli(chk, dev, K, F, card, tmp):
               render_frame(d, cam_hw, preset("ULTRA"), normals=on(n)),
               tol=0.0)
 
-    for impl, c in (("auto", counts(render_ao_level=4, blur_upsample_step=1,
+    for impl, c in (("auto", counts(prepare_levels=1, render_ao_level=4,
+                                    blur_upsample_step=1,
                                     fused_render_upsample_step=3)),
-                    ("pallas", counts(render_ao_level=4,
+                    ("pallas", counts(prepare_levels=1, render_ao_level=4,
                                       blur_upsample_step=4)),
                     ("fused", high)):
         dump = tmp / f"dbg_{impl}.npz"
@@ -1238,10 +1370,10 @@ def phase_rigs(chk, dev, K, F, card):
         return c, p, own
 
     rigs = {"uniform": (rig([60.0] * v, [1.0] * v), counts(
-                render_ao_level=1, blur_upsample_step=1,
+                prepare_levels=1, render_ao_level=1, blur_upsample_step=1,
                 fused_render_upsample_step=3)),
             "4 pairs": (rig(fovs, strengths), counts(
-                render_ao_level=4, blur_upsample_step=4,
+                prepare_levels=4, render_ao_level=4, blur_upsample_step=4,
                 fused_render_upsample_step=12))}
     fns = {}
     for name, ((c, p, own), want) in rigs.items():
@@ -1483,8 +1615,8 @@ def phase_mesh(chk, dev, K, F, card):
         n = len(mesh)
         tag = f"mesh {tuple(str(d) for d in mesh)}"
         print(f"{tag}, 1080p [{card}]:")
-        per = counts(render_ao_level=1, blur_upsample_step=1,
-                     fused_render_upsample_step=3)
+        per = counts(prepare_levels=1, render_ao_level=1,
+                     blur_upsample_step=1, fused_render_upsample_step=3)
         shards = {k: v * n for k, v in per.items()}
         out, paths[f"{tag} views"] = run(
             f"{tag} 8 views", lambda: render_views_sharded(z[:8], cam, par,
@@ -1527,7 +1659,8 @@ def phase_mesh(chk, dev, K, F, card):
     tp = TemporalParams()
     frames = v_n * t_n
     for rl, per_frame in ((0, (1, 1, 3)), (1, (2, 2, 2))):
-        want = counts(render_ao_level=frames * per_frame[0],
+        want = counts(prepare_levels=frames,
+                      render_ao_level=frames * per_frame[0],
                       blur_upsample_step=frames * per_frame[1],
                       fused_render_upsample_step=frames * per_frame[2],
                       windowed_resolve=v_n * (t_n - 1))
@@ -1641,7 +1774,7 @@ def phase_spatial(chk, dev, K, F, card):
     cam, par = CameraParams(depth_mode="linear"), AOParams()
     halo = stencil_halo_rows(par)
     home = torch.cuda.current_device()
-    per = counts(render_ao_level=1, blur_upsample_step=1,
+    per = counts(prepare_levels=1, render_ao_level=1, blur_upsample_step=1,
                  fused_render_upsample_step=3)
     times = lambda c, n: {k: v * n for k, v in c.items()}
     paths = {}
@@ -1721,7 +1854,7 @@ def phase_spatial(chk, dev, K, F, card):
                                     par)[halo: halo + h8]
         chk.close("", f"8K HIGH on {n} bands (padded to {ha}, bands of "
                   f"{ha // n}, ext {ha // n + 2 * halo}), launches "
-                  f"{5 * n}, vs the padded monolithic frame", out,
+                  f"{6 * n}, vs the padded monolithic frame", out,
                   refs[ha], tol=0.0)
     band_kernels(z8, "8K")
     # 4K ULTRA on 2 bands: normals, uint8 colour, every debug leaf
@@ -1737,14 +1870,15 @@ def phase_spatial(chk, dev, K, F, card):
     out, dbg = run("spatial ULTRA 4K 2 bands", lambda: render_frame_spatial(
         z4, cam, ultra, mesh=(dev, dev), normals=n4, color=rgb,
         out_dtype="uint8", debug_outputs=True),
-        counts(render_ao_level_normals=8, blur_upsample_step=8))
+        counts(prepare_levels=2, render_ao_level_normals=8,
+               blur_upsample_step=8))
     ref, rdbg = render_frame(halo_padded(z4, 2), cam, ultra,
                              normals=halo_padded(n4, 2),
                              color=halo_padded(rgb, 2), out_dtype="uint8",
                              debug_outputs=True)
     if out.dtype != torch.uint8 or tuple(out.shape) != (h4, w4, 3):
         raise RuntimeError(f"ULTRA spatial gave {out.dtype} {out.shape}")
-    chk.close("", "4K ULTRA on 2 bands, uint8 colour, launches 16, vs "
+    chk.close("", "4K ULTRA on 2 bands, uint8 colour, launches 18, vs "
               "the padded monolithic frame", out, ref[halo: halo + h4],
               tol=0.0)
     leaves = 0
@@ -1768,7 +1902,7 @@ def phase_spatial(chk, dev, K, F, card):
     err = max(chk.close("", "", out[i], render_frame_spatial(
         zs[i], cam, par, mesh=(dev, dev)), tol=0.0, quiet=True)
         for i in range(2))
-    print(f"  grid 2x2, 2 4K views: launches 20; each view vs its own "
+    print(f"  grid 2x2, 2 4K views: launches 24; each view vs its own "
           f"spatial run max_abs_err={err:.3e}", flush=True)
     fovs, strengths = [60.0, 80.0] * 2, [1.0, 2.0] * 2
     tan = [math.tan(math.radians(f) / 2) for f in fovs]
@@ -1785,7 +1919,7 @@ def phase_spatial(chk, dev, K, F, card):
         par.replace(strength=strengths[i]), mesh=(dev, dev)), tol=0.0,
         quiet=True) for i in range(4))
     print(f"  grid 2x2 rig, 4 4K views of 2 value sets (2 a block): "
-          f"launches 40 (2 batches a device); each view vs its own spatial "
+          f"launches 48 (2 batches a device); each view vs its own spatial "
           f"run max_abs_err={err:.3e}", flush=True)
     # the kernels against the plain ops on this path, and the engine
     z1 = torch.as_tensor(F.spheres_on_plane(1080, 1920, cam, seed=SEED + 2),
@@ -2165,17 +2299,15 @@ def frame_peak(rows: int, w: int) -> tuple[int, int]:
     """Predicted peak bytes of one HIGH ``auto`` frame program call
     (``ao_pipeline``) on (rows, w) float32 hardware depth, beyond its
     input, and the bytes it still holds when its last step has written.
-    Linearising holds the padded depth where padding copies it and three
-    planes at once: ``1.0 / x`` is ``x.reciprocal() * 1.0`` in PyTorch,
-    so x, its reciprocal and the product coexist.  At the end: the linear
-    depth, pyramid levels 1-4, the level-4 AO, the chain's outputs at
-    levels 3-1 and the cropped result.  The kernels allocate their
-    outputs and nothing else."""
+    Every launch, the prologue's too (``csrc/prepare.cu``: no padded copy,
+    no linearising temporaries), allocates its outputs and nothing else,
+    and the call holds them all to its end, so the two are one: the
+    linear depth, pyramid levels 1-4, the level-4 AO, the chain's outputs
+    at levels 3-1 and the cropped result."""
     rp, wp = -(-rows // 64) * 64, -(-w // 64) * 64
     plane = 4 * rp * wp
-    copy = plane if (rp, wp) != (rows, w) else 0
     end = plane + plane * (85 + 1 + 4 + 16 + 64) // 256 + 4 * rows * w
-    return max(copy + 3 * plane, end), end
+    return end, end
 
 
 def sections_peak(h: int, w: int, k: int, halo: int) -> int:
@@ -2234,7 +2366,7 @@ def phase_sections(chk, dev, K, F, card):
 
     cam_hw, par = CameraParams(), AOParams()
     halo = stencil_halo_rows(par)
-    per = counts(render_ao_level=1, blur_upsample_step=1,
+    per = counts(prepare_levels=1, render_ao_level=1, blur_upsample_step=1,
                  fused_render_upsample_step=3)
     times = lambda c, n: {k: v * n for k, v in c.items()}
     paths, records = {}, []
@@ -2309,7 +2441,7 @@ def phase_sections(chk, dev, K, F, card):
         out, *pk = run(f"sections {label}", fn, times(per, k))
         outs8[k] = out
         hold(label, out, mono, gold, pk, sections_peak(h8, w8, k, halo),
-             launches=5 * k, rows=section_rows(h8, k, halo))
+             launches=6 * k, rows=section_rows(h8, k, halo))
         fns[label] = fn
     del gold
     # times, in turns: the monolithic frame beside its sections
@@ -2362,11 +2494,12 @@ def phase_sections(chk, dev, K, F, card):
     eng = AmbientOcclusionEngine(cam_hw, ultra, out_dtype="uint8")
     got, *_ = run("sections ULTRA 4K k=3", lambda: eng.render_sections(
         d4, 3, normals=n4, color=rgb),
-        counts(render_ao_level_normals=12, blur_upsample_step=12))
+        counts(prepare_levels=3, render_ao_level_normals=12,
+               blur_upsample_step=12))
     if got.dtype != torch.uint8 or tuple(got.shape) != (h4, w4, 3):
         raise RuntimeError(f"ULTRA sections gave {got.dtype} {got.shape}")
     err = chk.close("", "4K ULTRA, normals, uint8 colour, k=3 "
-                    "(engine.render_sections), launches 12/12, vs the "
+                    "(engine.render_sections), launches 3/12/12, vs the "
                     "monolithic frame (codes)", got, want, tol=1)
     records.append({"path": "4K ULTRA k=3 uint8 colour",
                     "shape": list(got.shape), "vs_monolithic": err})
@@ -2381,10 +2514,10 @@ def phase_sections(chk, dev, K, F, card):
                   render_frame_sections(d1, cam_hw, par, n_sections=8),
                   times(per, kept))
     err = chk.close("", f"1080p k=8 (clamped plan, {kept} sections keep "
-                    f"rows, launches {5 * kept}) vs the monolithic frame",
+                    f"rows, launches {6 * kept}) vs the monolithic frame",
                     got, want, tol=0.0)
     records.append({"path": "1080p k=8 clamped", "shape": list(got.shape),
-                    "vs_monolithic": err, "launches": 5 * kept})
+                    "vs_monolithic": err, "launches": 6 * kept})
     try:
         render_frame_sections_fused(d1, cam_hw, par, n_sections=8)
     except ValueError as e:
@@ -2416,7 +2549,7 @@ def phase_sections(chk, dev, K, F, card):
                        render_frame_sections(d16, cam_hw, par,
                                              n_sections=k), times(per, k))
         hold(f"16K k={k} separate", out, mono, gold, pk,
-             sections_peak(h16, w16, k, halo), launches=5 * k,
+             sections_peak(h16, w16, k, halo), launches=6 * k,
              rows=section_rows(h16, k, halo))
         if k >= 4 and not pk[0] < mono_peak:
             raise RuntimeError(f"16K k={k}: peak {pk[0]} B not below the "
@@ -2904,9 +3037,14 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
     out = {}
     order = (["parent"] if "parent" in libs else []) + ["new", "new"] + \
         (["parent"] if "parent" in libs else [])
+    # a frame path launches the prologue, which an older tree's library
+    # may lack: then the path runs on this tree's kernels alone
+    whole = "parent" in libs and hasattr(libs["parent"],
+                                         "tpuao_prepare_levels")
     for (kern, shape), (fn, work) in cases.items():
         ms = {}
-        for which in order:
+        sides = order if work != "profile" or whole else ["new", "new"]
+        for which in sides:
             with kernel_library(libs[which]):
                 ms.setdefault(which, []).append(
                     device_profile(fn)[0] if work == "profile" else
@@ -2918,6 +3056,8 @@ def phase_parent(dev, K, P, R, F, cam, card, parent):
             old = sum(ms["parent"]) / 2
             line += (f", parent {ms['parent'][0]:.4f} / {ms['parent'][1]:.4f}"
                      f" ms, speedup {old / new:.2f}x")
+        elif "parent" in libs:
+            line += ", parent: no prologue"
         if work != "profile":
             b_ms, b_by = bound(*work)
             line += (f", bound {b_ms:.4f} ms ({b_by}), roofline share "
@@ -3152,8 +3292,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     main_counts = K.launch_counts()
     print(f"  main path, batch (4, {h0}, {w0}) auto: launches {main_counts}")
-    want_counts = counts(render_ao_level=1, blur_upsample_step=1,
-                         fused_render_upsample_step=3)
+    want_counts = counts(prepare_levels=1, render_ao_level=1,
+                         blur_upsample_step=1, fused_render_upsample_step=3)
     if main_counts != want_counts:
         raise RuntimeError(f"main path launches {main_counts} != "
                            f"{want_counts}")
@@ -3162,7 +3302,8 @@ def main(argv=None) -> int:
     if K.launch_counts() != dict.fromkeys(want_counts, 0):
         raise RuntimeError(f"impl='jnp' launched {K.launch_counts()}")
     out_pallas = render_frame(batch, cam_hw, par, impl="pallas")
-    pallas_counts = counts(render_ao_level=4, blur_upsample_step=4)
+    pallas_counts = counts(prepare_levels=1, render_ao_level=4,
+                           blur_upsample_step=4)
     if K.launch_counts() != pallas_counts:
         raise RuntimeError(f"impl='pallas' launched {K.launch_counts()}")
     if not bool(((out_auto >= 0) & (out_auto <= 1)).all()):
@@ -3268,6 +3409,7 @@ def main(argv=None) -> int:
                                                        par)))
     print(f"  render at level 1 (544x960, the pallas path's largest): "
           f"kernel {l1[0]:.4f} ms, plain {l1[1]:.4f} ms [{card}]")
+    ms.update(phase_prologue(chk, dev, K, F, card))
 
     # 6-9: the engine and temporal paths and their kernels
     from tpuao_torch.ops import render as R
@@ -3324,7 +3466,8 @@ def main(argv=None) -> int:
              **tune_paths}
 
     # each kernel's launches come from its own path's main run: the depth-
-    # only frame (phase 4), the ULTRA engine (phase 7), the moving-camera
+    # only frame (phase 4), the ULTRA engine (phase 7; the prologue's row
+    # too, as it times the prologue with normals), the moving-camera
     # HIGH sequence at resolve_level 0 (phase 8); its bound is that of the
     # work its "ms" timed (phases 5, 9, 10)
     normals_work = [render_work(pyr[l].shape, planes=2) for l in range(1, 5)]
@@ -3332,6 +3475,7 @@ def main(argv=None) -> int:
                                              tuple(pyr[l - 1].shape)),
                              npairs=34) for l in (3, 2, 1)]
     work = {
+        "prepare": prepare_work(1, 2160, 3840, 4, normals=True),
         "render": render_work(pyr[4].shape),
         "render_normals": tuple(map(sum, zip(*normals_work))),
         "upsample": chain_work(pyr[4].shape, *pyr[3].shape),
@@ -3341,6 +3485,8 @@ def main(argv=None) -> int:
         "zc": chain_work(pyr[1].shape, h0, w0, npairs=34),
     }
     meta = {
+        "prepare": ("prepare_levels", "tpuao_torch/csrc/prepare.cu",
+                    "none (tpuao leaves prepare to XLA)", ultra_counts),
         "render": ("render_ao_level", "tpuao_torch/csrc/render.cu",
                    "tpuao/ops/pallas_kernels.py:660", main_counts),
         "render_normals": ("render_ao_level_normals",

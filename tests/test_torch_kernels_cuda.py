@@ -22,7 +22,8 @@ from tpuao_torch.ops import kernels as K
 from tpuao_torch.ops import prepare as P
 from tpuao_torch.ops import render as R
 from tpuao_torch.ops import temporal as T
-from tpuao_torch.params import AOParams, CameraParams, TemporalParams
+from tpuao_torch.params import (AOParams, CameraParams, TemporalParams,
+                                padded_shape)
 from tpuao_torch.utils import fixtures as F
 from tpuao_torch.utils.timing import cuda_time_ms
 
@@ -117,6 +118,121 @@ def test_fused(dev, lh, lw, crop):
     close(got, K.fused_render_upsample_step_plain(*args, crop_hw=crop))
 
 
+# ---------------------------------------------------------------------------
+# the prologue (csrc/prepare.cu) against its plain ops, bit for bit
+# ---------------------------------------------------------------------------
+
+PROLOGUE_CAMS = {
+    "reversed": CameraParams(),
+    "forward": CameraParams(reversed_z=False, near=0.3, far=40.0),
+    "linear": CameraParams(depth_mode="linear"),
+}
+
+
+def prologue_inputs(dev, batch, h0, w0, seed):
+    """Depth in [0, 1] with exact 0s, 1s and NaNs; normals in [-1, 1]^3,
+    many with n_z <= 0.05, some exactly 0.05, some NaN: channel-last and
+    channel-first (leading dims ``batch``, none for None)."""
+    rng = np.random.default_rng(seed)
+    b = 1 if batch is None else batch
+    z = rng.uniform(0.0, 1.0, (b, h0, w0)).astype(np.float32)
+    n = rng.uniform(-1.0, 1.0, (b, h0, w0, 3)).astype(np.float32)
+    flat_z, flat_n = z.reshape(-1), n.reshape(-1, 3)
+    for v in (0.0, 1.0, np.nan):
+        flat_z[rng.integers(0, flat_z.size, 7)] = v
+    flat_n[rng.integers(0, len(flat_n), 9), rng.integers(0, 3, 9)] = np.nan
+    flat_n[rng.integers(0, len(flat_n), 9), 2] = 0.05
+    if batch is None:
+        z, n = z[0], n[0]
+    ncl = torch.as_tensor(n, device=dev)
+    return (torch.as_tensor(z, device=dev), ncl,
+            ncl.movedim(-1, -3).contiguous())
+
+
+def same_bits(got, want):
+    """Equal values at equal NaN positions, a dense output."""
+    assert got.shape == want.shape and got.device == want.device
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def check_prologue(z, cam, d, nrm=None):
+    """One launch of the kernel a call, bit-equal to the plain ops."""
+    hp, wp = padded_shape(*z.shape[-2:])
+    K.reset_launch_counts()
+    got, gs = K.prepare_levels(z, cam, d, hp, wp, nrm)
+    assert K.launch_counts() == counts(prepare_levels=1)
+    want, ws = P.prepare_levels_plain(z, cam, d, hp, wp, nrm)
+    assert len(got) == len(want) == d + 1
+    for g, w in zip(got, want):
+        same_bits(g, w)
+    assert (gs is None) == (nrm is None)
+    if nrm is not None:
+        assert len(gs) == len(ws) == d + 1 and gs[0] is None
+        for (gx, gy), (wx, wy) in zip(gs[1:], ws[1:]):
+            same_bits(gx, wx)
+            same_bits(gy, wy)
+
+
+@pytest.mark.parametrize("mode", sorted(PROLOGUE_CAMS))
+@pytest.mark.parametrize("hw,batch", [((70, 130), None), ((70, 130), 8),
+                                      ((1000, 1900), None),
+                                      ((128, 192), None), ((128, 192), 8)])
+def test_prologue_equals_plain_ops(dev, hw, batch, mode):
+    """Pads on both axes and on neither, depths 1-4, depth only and both
+    normals layouts; depth 0, 1 and NaN, n_z <= 0.05 and NaN."""
+    z, ncl, ncf = prologue_inputs(dev, batch, *hw, seed=hw[0] + (batch or 1))
+    for d in range(1, 5):
+        for nrm in (None, ncl, ncf):
+            check_prologue(z, PROLOGUE_CAMS[mode], d, nrm)
+
+
+@pytest.mark.parametrize("case", ["4k_normals", "8x1080p", "8x1080p_normals",
+                                  "1000x1900_normals"])
+def test_prologue_main_path_shapes(dev, case):
+    """The cells' shapes: 4K with channel-last normals, a rig of 8 1080p
+    views (and with normals), 1000x1900; reversed-Z hardware depth."""
+    cam = CameraParams()
+    batch, hw = {"4k_normals": (None, (2160, 3840)),
+                 "8x1080p": (8, (1080, 1920)),
+                 "8x1080p_normals": (8, (1080, 1920)),
+                 "1000x1900_normals": (None, (1000, 1900))}[case]
+    z, ncl, _ = prologue_inputs(dev, batch, *hw, seed=21)
+    check_prologue(z, cam, 4, ncl if case.endswith("normals") else None)
+
+
+def test_prologue_reads_views_and_converts(dev):
+    """A row slice of a batch (strided depth), a strided channel-last view
+    of the normals, float16 depth and normals: the same bits as the plain
+    ops on the same tensors; a tensor that requires grad is refused."""
+    cam = CameraParams()
+    z, ncl, _ = prologue_inputs(dev, 3, 140, 264, seed=22)
+    check_prologue(z[:, 5:75, :130], cam, 4, ncl[:, 5:75, 3:133])
+    check_prologue(z[1, ::2, 1::2], cam, 2, ncl[1, ::2, 1::2])
+    check_prologue(z[..., :70, :128].half(), cam, 3,
+                   ncl[..., :70, :128, :].half())
+    with pytest.raises(ValueError, match="no backward"):
+        K.prepare_levels(z.clone().requires_grad_(), cam, 4,
+                         *padded_shape(140, 264))
+
+
+def test_prologue_replayed_from_the_frame_graph(dev, eager_frames):
+    """``render_frame``'s graph holds the prologue's launch in its tally,
+    and each replay adds it: one a call, eager, captured or replayed."""
+    from tpuao_torch.models import frame_graph as G
+
+    z, n = normals_scene(dev, 270, 480)
+    for par, nrm in ((preset("HIGH"), None), (preset("ULTRA"), n)):
+        G._clear()
+        for _ in range(3):
+            K.reset_launch_counts()
+            render_frame(z, CAM, par, normals=nrm)
+            assert K.prepare_levels.launches == 1
+        (entry,) = G._entries.values()
+        assert entry.launches[K.prepare_levels, "launches"] == 1
+        assert G.graph_counts()["replays"] == 2
+
+
 @pytest.mark.parametrize("hw,depth", [((128, 192), 4), ((100, 150), 4),
                                       ((64, 128), 1), ((64, 128), 2)])
 def test_render_frame_impls_and_launch_counts(dev, hw, depth):
@@ -128,12 +244,13 @@ def test_render_frame_impls_and_launch_counts(dev, hw, depth):
     want = render_frame(d, cam, par, impl="jnp")
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="auto"), want)
-    assert K.launch_counts() == counts(render_ao_level=1,
+    assert K.launch_counts() == counts(prepare_levels=1, render_ao_level=1,
                                        blur_upsample_step=1,
                                        fused_render_upsample_step=depth - 1)
     K.reset_launch_counts()
     close(render_frame(d, cam, par, impl="pallas"), want)
-    assert K.launch_counts() == counts(render_ao_level=depth,
+    assert K.launch_counts() == counts(prepare_levels=1,
+                                       render_ao_level=depth,
                                        blur_upsample_step=depth)
 
 
@@ -233,10 +350,12 @@ def test_temporal_frames_and_launch_counts(dev, resolve_level):
         K.reset_launch_counts()
         got = engines["auto"].render(frames[t], view=views[t])
         close(got, want)
-        want_counts = (counts(render_ao_level=1, blur_upsample_step=1,
+        want_counts = (counts(prepare_levels=1, render_ao_level=1,
+                              blur_upsample_step=1,
                               fused_render_upsample_step=3)
                        if resolve_level == 0 else
-                       counts(render_ao_level=2, blur_upsample_step=2,
+                       counts(prepare_levels=1, render_ao_level=2,
+                              blur_upsample_step=2,
                               fused_render_upsample_step=2))
         want_counts.update(windowed_resolve=int(t > 0))
         assert K.launch_counts() == want_counts
@@ -370,13 +489,14 @@ def test_render_dma_4k_level_twice(dev):
 
 def test_debug_outputs_render_every_level_under_auto(dev):
     """With debug_outputs the default path also renders levels 1-3 for the
-    dict (4 render launches, the chain's launches unchanged); without it
-    one; "fused" keeps level 4 alone."""
+    dict (4 render launches, the prologue's and the chain's launches
+    unchanged); without it one; "fused" keeps level 4 alone."""
     cam = CameraParams()
     z = torch.as_tensor(F.to_hardware_depth(
         F.spheres_on_plane(128, 192, cam, seed=2), cam).astype(np.float32),
         device=dev)
-    chain = dict(blur_upsample_step=1, fused_render_upsample_step=3)
+    chain = dict(prepare_levels=1, blur_upsample_step=1,
+                 fused_render_upsample_step=3)
     K.reset_launch_counts()
     out = render_frame(z, cam, AOParams())
     assert K.launch_counts() == counts(render_ao_level=1, **chain)
@@ -654,7 +774,7 @@ def test_windowed_refuses_what_requires_grad(dev):
 def test_launchers_keep_the_callers_device_and_mesh_of_one_card(dev):
     """A launch leaves the current device as it found it (on another card
     too, where there is one); a mesh naming this card twice renders each
-    view bit-equal to one batch, 5 launches a shard."""
+    view bit-equal to one batch, 6 launches a shard."""
     from tpuao_torch.parallel.sharding import render_views_sharded
 
     z = torch.stack([pyramid(dev, 64, 96, seed=s)[0] for s in range(3)])
@@ -664,7 +784,7 @@ def test_launchers_keep_the_callers_device_and_mesh_of_one_card(dev):
     two = render_views_sharded(z, CAM, mesh=[dev, dev])
     assert torch.cuda.current_device() == before
     assert torch.equal(one, two)
-    assert K.launch_counts() == counts(render_ao_level=2,
+    assert K.launch_counts() == counts(prepare_levels=2, render_ao_level=2,
                                        blur_upsample_step=2,
                                        fused_render_upsample_step=6)
     if torch.cuda.device_count() > 1:
@@ -677,7 +797,7 @@ def test_launchers_keep_the_callers_device_and_mesh_of_one_card(dev):
 def test_spatial_1080p_on_two_bands_of_one_card(dev):
     """A 1080p frame in 2 row bands on ``(cuda:0, cuda:0)`` (padded to
     1152 rows, bands of 576, each extended by 320 halo rows) is bit-equal
-    to the frame program on the halo-padded frame, cropped: 5 launches a
+    to the frame program on the halo-padded frame, cropped: 6 launches a
     band, the current device unchanged."""
     from tpuao_torch.parallel.spatial import HALO_ROWS, render_frame_spatial
 
@@ -687,7 +807,7 @@ def test_spatial_1080p_on_two_bands_of_one_card(dev):
     K.reset_launch_counts()
     got = render_frame_spatial(z, CAM, mesh=[dev, dev])
     assert torch.cuda.current_device() == before
-    assert K.launch_counts() == counts(render_ao_level=2,
+    assert K.launch_counts() == counts(prepare_levels=2, render_ao_level=2,
                                        blur_upsample_step=2,
                                        fused_render_upsample_step=6)
     padded = torch.nn.functional.pad(
@@ -701,7 +821,8 @@ def test_spatial_1080p_on_two_bands_of_one_card(dev):
 def test_golden_on_the_card(dev):
     """The float64 golden on the card agrees with the CPU's within 1e-12
     at 135x240 (HIGH, and ULTRA with normals), and the HIGH ``auto`` frame
-    (render 1, upsample 1, fused 3 launches) is within 1e-4 of the card's
+    (prologue 1, render 1, upsample 1, fused 3 launches) is within 1e-4
+    of the card's
     golden, the bound the CPU tests hold the plain path to."""
     from tpuao_torch.golden import render_frame_golden
 
@@ -718,7 +839,7 @@ def test_golden_on_the_card(dev):
         assert float((g.cpu() - c).abs().max()) <= 1e-12
     K.reset_launch_counts()
     got = render_frame(d, cam, preset("HIGH"), impl="auto")
-    assert K.launch_counts() == counts(render_ao_level=1,
+    assert K.launch_counts() == counts(prepare_levels=1, render_ao_level=1,
                                        blur_upsample_step=1,
                                        fused_render_upsample_step=3)
     want = render_frame_golden(d, cam, preset("HIGH"))
@@ -738,7 +859,7 @@ def test_sections_1080p_equal_the_monolithic_frame(dev, k):
     want = render_frame(z, CAM)
     K.reset_launch_counts()
     got = render_frame_sections(z, CAM, n_sections=k)
-    assert K.launch_counts() == counts(render_ao_level=k,
+    assert K.launch_counts() == counts(prepare_levels=k, render_ao_level=k,
                                        blur_upsample_step=k,
                                        fused_render_upsample_step=3 * k)
     assert got.shape == (1080, 1920) and got.device == z.device
@@ -916,12 +1037,13 @@ def test_trace_launch_spans_equal_the_launch_counts(dev, case, eager_frames):
             by_stage[stage] = by_stage.get(stage, 0) + 1
     got = K.launch_counts()
     assert by_stage == {k: v for k, v in {
+        "ao_prepare": got["prepare_levels"],
         "ao_render_l": (got["render_ao_level"]
                         + got["render_ao_level_normals"]),
         "ao_upsample_l": got["blur_upsample_step"],
         "ao_fused_l": got["fused_render_upsample_step"]}.items() if v}
     assert sum(by_stage.values()) == sum(got.values()) == {
-        "HIGH": 5, "HIGH_pallas": 8, "ULTRA": 8, "rig": 5}[case]
+        "HIGH": 6, "HIGH_pallas": 9, "ULTRA": 9, "rig": 6}[case]
 
 
 # ---------------------------------------------------------------------------
@@ -955,8 +1077,8 @@ def graph_against_eager(call, launches=None):
     return outs[0]
 
 
-HIGH_LAUNCHES = dict(render_ao_level=1, blur_upsample_step=1,
-                     fused_render_upsample_step=3)
+HIGH_LAUNCHES = dict(prepare_levels=1, render_ao_level=1,
+                     blur_upsample_step=1, fused_render_upsample_step=3)
 
 
 @pytest.mark.parametrize("batch", [None, 8])
@@ -976,7 +1098,8 @@ def test_graph_ultra_4k_channel_last_normals_bit_equal_to_eager(
     assert n.shape == (2160, 3840, 3)
     graph_against_eager(
         lambda: render_frame(z, CAM, preset("ULTRA"), normals=n),
-        counts(render_ao_level_normals=4, blur_upsample_step=4))
+        counts(prepare_levels=1, render_ao_level_normals=4,
+               blur_upsample_step=4))
 
 
 def test_graph_colour_uint8_bit_equal_to_eager(dev, eager_frames):
@@ -1060,7 +1183,8 @@ def test_graph_replay_adds_the_captured_launch_counts(dev, eager_frames):
             (lambda: render_frame(z, CAM, preset("HIGH")), HIGH_LAUNCHES),
             (lambda: render_frame(z, CAM, preset("ULTRA"), normals=n,
                                   impl="pallas"),
-             dict(render_ao_level_normals=4, blur_upsample_step=4)),
+             dict(prepare_levels=1, render_ao_level_normals=4,
+                  blur_upsample_step=4)),
             (lambda: render_views_sharded(z, CAM, preset("HIGH")),
              HIGH_LAUNCHES)):
         graph_against_eager(call, counts(**want))

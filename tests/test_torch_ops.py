@@ -11,6 +11,9 @@ kernels themselves are held against the plain versions on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,12 +29,13 @@ from tpuao.params import (AOParams as JAOParams, CameraParams as JCamera,
                           GoldenAOParams, GoldenCameraParams)
 from tpuao.utils import fixtures as JF
 
+from tpuao_torch.ops import _build
 from tpuao_torch.ops import composite as C
 from tpuao_torch.ops import kernels as K
 from tpuao_torch.ops import prepare as P
 from tpuao_torch.ops import render as R
 from tpuao_torch.ops import upsample as U
-from tpuao_torch.params import AOParams, CameraParams
+from tpuao_torch.params import AOParams, CameraParams, padded_shape
 
 KTOL = dict(atol=1e-5, rtol=1e-4)  # port vs Pallas kernel, both float32
 GTOL = dict(atol=1e-4)             # float32 port vs float64 golden
@@ -125,6 +129,198 @@ def test_deinterleave_roundtrip_exact():
                                   x.astype(np.float32))
     with pytest.raises(ValueError):
         P.deinterleave_4x4(torch.zeros(6, 8))
+
+
+# ---------------------------------------------------------------------------
+# the prologue (prepare_levels): csrc/prepare.cu's index rule, as gathers,
+# against the plain ops, bit for bit
+# ---------------------------------------------------------------------------
+
+PROLOGUE_CAMS = {
+    "reversed": CameraParams(),
+    "forward": CameraParams(reversed_z=False, near=0.3, far=40.0),
+    "linear": CameraParams(depth_mode="linear"),
+}
+
+
+def prologue_rule(depth, camera, d, hp, wp, normals_cl=None):
+    """The kernel's rule: texel (y, x) of level l is source texel
+    (min(y 2^l, h0 - 1), min(x 2^l, w0 - 1)), linearised; with normals
+    (channel-last) the slopes of levels 1..d at the same texels, in the
+    kernel's arithmetic (n_x, n_y) * float32(2 tanH / wp) / clamp(n_z,
+    0.05), NaN passed through the clamp."""
+    h0, w0 = depth.shape[-2:]
+    ts0 = torch.tensor(np.float32(2.0 * camera.tan_half_fov_h / wp))
+    levels, slopes = [], [None]
+    for l in range(d + 1):
+        ys = torch.clamp(torch.arange(hp >> l) << l, max=h0 - 1)
+        xs = torch.clamp(torch.arange(wp >> l) << l, max=w0 - 1)
+        levels.append(P.linearize_depth(
+            depth.index_select(-2, ys).index_select(-1, xs), camera))
+        if normals_cl is not None and l:
+            n = normals_cl.index_select(-3, ys).index_select(-2, xs)
+            nz = n[..., 2]
+            g = ts0 / torch.where(torch.isnan(nz), nz,
+                                  torch.clamp(nz, min=0.05))
+            slopes.append((n[..., 0] * g, n[..., 1] * g))
+    return levels, None if normals_cl is None else slopes
+
+
+def assert_bits(got, want):
+    """Equal values and equal NaN positions (``torch.equal`` with NaN)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def assert_prologue(got, want, d):
+    (gl, gs), (wl, ws) = got, want
+    assert len(gl) == len(wl) == d + 1
+    for g, w in zip(gl, wl):
+        assert_bits(g, w)
+        assert g.is_contiguous()  # the kernels read raw pointers
+    assert (gs is None) == (ws is None)
+    if gs is not None:
+        assert len(gs) == len(ws) == d + 1 and gs[0] is None
+        for (gx, gy), (wx, wy) in zip(gs[1:], ws[1:]):
+            assert_bits(gx, wx)
+            assert_bits(gy, wy)
+            assert gx.is_contiguous() and gy.is_contiguous()
+
+
+def prologue_inputs(batch, h0, w0, seed):
+    """Depth in [0, 1] with exact 0s, 1s and NaNs; unit-ish normals, many
+    with n_z <= 0.05, some NaN: channel-last and channel-first."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0.0, 1.0, (batch, h0, w0)).astype(np.float32)
+    n = rng.uniform(-1.0, 1.0, (batch, h0, w0, 3)).astype(np.float32)
+    flat_z, flat_n = z.reshape(-1), n.reshape(-1, 3)
+    for v in (0.0, 1.0, np.nan):
+        flat_z[rng.integers(0, flat_z.size, 7)] = v
+    flat_n[rng.integers(0, len(flat_n), 9), rng.integers(0, 3, 9)] = np.nan
+    flat_n[rng.integers(0, len(flat_n), 9), 2] = 0.05
+    cl = torch.as_tensor(n)
+    return torch.as_tensor(z), cl, cl.movedim(-1, -3).contiguous()
+
+
+@pytest.mark.parametrize("mode", sorted(PROLOGUE_CAMS))
+@pytest.mark.parametrize("hw,batch", [((70, 130), 1), ((70, 130), 8),
+                                      ((1000, 1900), 1), ((128, 192), 1),
+                                      ((128, 192), 8)])
+def test_prologue_rule_equals_plain_ops(hw, batch, mode):
+    """Pads on both axes (70x130, 1000x1900) and on neither (128x192),
+    depths 1-4, both normals layouts, through the frame program's choice
+    of prologue under each impl (the kernel wrapper runs the plain ops on
+    the CPU) and the plain version itself."""
+    from tpuao_torch.models.pipeline import _select_prepare_impl
+
+    cam = PROLOGUE_CAMS[mode]
+    z, ncl, ncf = prologue_inputs(batch, *hw, seed=hw[0] + batch)
+    if batch == 1:
+        z, ncl, ncf = z[0], ncl[0], ncf[0]
+    hp, wp = padded_shape(*hw)
+    for d in range(1, 5):
+        want = prologue_rule(z, cam, d, hp, wp)
+        assert_prologue(P.prepare_levels_plain(z, cam, d, hp, wp), want, d)
+        want_n = prologue_rule(z, cam, d, hp, wp, ncl)
+        for nrm in (ncl, ncf):
+            for impl in ("auto", "jnp"):
+                assert_prologue(_select_prepare_impl(impl)(
+                    z, cam, d, hp, wp, nrm), want_n, d)
+
+
+def test_prologue_refuses_padded_dims_it_cannot_pick():
+    z = torch.zeros(70, 130)
+    cam = CameraParams()
+    K.prepare_levels(z, cam, 4, 80, 144)  # multiples of 16
+    for hp, wp, d in ((64, 192, 1), (128, 129, 0), (72, 192, 4),
+                      (128, 136, 4), (128, 192, 7)):
+        with pytest.raises(ValueError, match="prepare_levels"):
+            K.prepare_levels(z, cam, d, hp, wp)
+
+
+def _old_prologue(depth, camera, d, hp, wp, normals=None):
+    """The prologue as the frame program, ``single_scale_ao`` and the
+    stage profiler each wrote it before ``prepare_levels``."""
+    h0, w0 = depth.shape[-2:]
+    x = depth.to(torch.float32)
+    if (hp, wp) != (h0, w0):
+        x = U._edge_pad(x, 0, hp - h0, 0, wp - w0)
+    pyr = [lvl.contiguous() for lvl in
+           P.build_pyramid(P.linearize_depth(x, camera), d)]
+    if normals is None:
+        return pyr, None
+    return pyr, R.slope_pyramid(normals.to(torch.float32),
+                                camera.tan_half_fov_h, hp, wp, d, h0=h0,
+                                w0=w0)
+
+
+def _checksum(x) -> float:
+    if isinstance(x, torch.Tensor):
+        return float(x.double().sum())
+    if isinstance(x, (list, tuple)):
+        return sum(_checksum(v) for v in x if v is not None)
+    return 0.0
+
+
+@pytest.mark.parametrize("impl", ["auto", "jnp", "pallas", "fused"])
+@pytest.mark.parametrize("ultra", [False, True])
+def test_prologue_callers_unchanged(monkeypatch, impl, ultra):
+    """``ao_pipeline``, ``single_scale_ao`` and ``stage_times_ms`` give
+    the same bits with the prologue functions as with the sequence they
+    replaced (the stage profiler's ``prepare`` now holds the slope levels
+    too, so with normals it is left out)."""
+    from tpuao_torch.models.pipeline import ao_pipeline, single_scale_ao
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.utils.profiling import stage_times_ms
+
+    cam = CameraParams()
+    par = preset("ULTRA" if ultra else "HIGH")
+    z, ncl, _ = prologue_inputs(2, 70, 130, seed=5)
+    z = torch.nan_to_num(z, nan=0.5).clamp(0.05, 0.999)
+    nrm = torch.nan_to_num(ncl, nan=0.0) if ultra else None
+
+    def run():
+        ao, dbg = ao_pipeline(z, cam, par, nrm, impl=impl, all_levels=True)
+        single = single_scale_ao(z, cam, par, impl=impl)
+        stages = stage_times_ms(z, cam, par, nrm, impl=impl,
+                                timer=lambda call: _checksum(call()))
+        if ultra:
+            del stages["prepare"]
+        return ao, dbg, single, stages
+
+    new = run()
+    monkeypatch.setattr(P, "prepare_levels_plain", _old_prologue)
+    monkeypatch.setattr(K, "prepare_levels", _old_prologue)
+    old = run()
+    assert_bits(new[0], old[0])
+    assert_bits(new[2], old[2])
+    assert new[3] == old[3]
+    assert new[1].keys() == old[1].keys()
+    for key in new[1]:
+        a, b = new[1][key], old[1][key]
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                assert_bits(a[k], b[k])
+        else:
+            assert_bits(a, b)
+
+
+@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_sources(entry):
+    """Each entry point's ``argtypes`` follow its C parameter list in
+    ``csrc/*.cu`` (no compiler here reads them): a pointer is c_void_p,
+    ``long long`` c_longlong, ``int`` c_int, ``float`` c_float."""
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    found = re.findall(r"\bint\s+" + entry + r"\s*\(([^)]*)\)", src)
+    assert len(found) == 1, found
+    kinds = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    got = []
+    for p in (re.sub(r"\s+", " ", p.strip()) for p in found[0].split(",")):
+        got.append(ctypes.c_void_p if "*" in p else next(
+            t for k, t in kinds.items() if p.startswith(k + " ")))
+    assert got == list(_build.SIGNATURES[entry])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """``render_frame``'s launches, replayed from a CUDA graph.
 
-A 1080p frame's 14 launches (5 kernels of ``ops/kernels.py`` and prepare's
-PyTorch ops) run on the card in about 0.1 ms, while issuing them one by one
-from Python takes several times that.  So ``models/pipeline.render_frame``
+A 1080p frame's 6 launches (the prologue and 5 render and chain kernels
+of ``ops/kernels.py``) run on the card in under 0.1 ms, while issuing them
+one by one from Python takes several times that.  So ``models/pipeline.render_frame``
 asks ``replay`` first: it captures the frame program (``ao_pipeline``'s
 primary output) once per key in a CUDA graph and replays it.  The graph
 runs the same launches with the same arguments as the eager path, so its

@@ -10,21 +10,26 @@ captured on the second call of its shape (``models/frame_graph.py``).
 ``impl`` takes the JAX package's four values, so calls carry over:
 
 * ``"jnp"``: the plain PyTorch versions of every op;
+* every other value first launches the prologue kernel once
+  (``ops/kernels.prepare_levels``: pad, linearise, every pyramid level and
+  the slope levels);
 * ``"pallas"``: the render kernel at every level and the upsample kernel at
   every chain step;
 * ``"fused"`` and ``"auto"``: the render kernel at the coarsest level only,
   the upsample kernel for the first step d -> d-1 (no pre-min), and the
-  fused render+upsample kernel for every step after it -- 1 + 1 + (d-1)
-  launches per call at hierarchy depth d, whatever the batch size (the
-  batch is a grid dimension of each kernel).  With ``debug_outputs``,
+  fused render+upsample kernel for every step after it -- 1 + 1 + 1 +
+  (d-1) launches per call at hierarchy depth d with the prologue, whatever
+  the batch size (the batch is a grid dimension of each kernel).  With
+  ``debug_outputs``,
   ``"auto"`` also renders levels 1..d-1 for the debug dict (d render
   launches), as the JAX package's ``"auto"`` returns every level;
   ``"fused"`` returns level d alone, as the JAX package's does.
 
 With normals (``params.use_normals``, the ``ULTRA`` preset) there is no
 fused step: the normals render kernel runs at every level (slope planes
-under ``"auto"``/``"fused"``, raw normals under ``"pallas"``) and the
-upsample kernel with pre-min at every step -- d + d launches.
+under ``"auto"``/``"fused"``, from the prologue's launch; raw normals,
+picked by plain ops, under ``"pallas"``) and the upsample kernel with
+pre-min at every step -- 1 + d + d launches.
 
 The temporal entry points (``render_frame_temporal``,
 ``render_sequence_temporal``, ``TemporalAOEngine``) add one windowed-
@@ -82,11 +87,11 @@ def _select_upsample_impl(impl: str):
     return U.blur_upsample_step if impl == "jnp" else K.blur_upsample_step
 
 
-def _pad_to_64(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
-    h, w = x.shape[-2:]
-    if (hp, wp) == (h, w):
-        return x
-    return U._edge_pad(x, 0, hp - h, 0, wp - w)
+def _select_prepare_impl(impl: str):
+    """Prologue function: the plain ops for ``"jnp"``, the kernel wrapper
+    (one launch on the card, the plain ops on the CPU) otherwise."""
+    _check_impl(impl)
+    return P.prepare_levels_plain if impl == "jnp" else K.prepare_levels
 
 
 def _normals_on(normals, device: torch.device) -> torch.Tensor:
@@ -141,23 +146,21 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     render_level = _select_render_impl(impl)
 
     with trace.span("ao_prepare") if trace.ON else trace.OFF:
-        # the padded depth is not held past linearising: where it is a
-        # copy and the depth is hardware depth, it is a frame of its own
-        linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
-                                 camera)
-        # each level once as a dense array: the kernels read raw pointers
-        pyr = [lvl.contiguous() for lvl in P.build_pyramid(linz, d)]
+        if use_n:
+            normals = _normals_on(normals, depth.device)
+        # on the card one launch: every depth level, each dense, and the
+        # slope levels (but under "pallas", whose raw normals are below)
+        pyr, slopes = _select_prepare_impl(impl)(
+            depth, camera, d, hp, wp,
+            normals if use_n and impl != "pallas" else None)
     nkw = [{} for _ in range(d + 1)]
     if use_n:
         with trace.span("ao_slopes") if trace.ON else trace.OFF:
-            normals = _normals_on(normals, depth.device)
-            if impl == "pallas":  # the raw-normals ABI
+            if impl == "pallas":  # the raw-normals ABI, plain ops
                 nkw = [{"normals_ds": n}
                        for n in R.normals_pyramid(normals, hp, wp, d)]
-            else:  # slope planes once at full res, then pick-one
-                nkw = [{"slopes_ds": g} for g in R.slope_pyramid(
-                    normals.to(torch.float32), camera.tan_half_fov_h, hp,
-                    wp, d, h0=h0, w0=w0)]
+            else:
+                nkw = [{}] + [{"slopes_ds": g} for g in slopes[1:]]
     fused = impl in ("auto", "fused") and params.enable_blur and not use_n
     if not params.enable_blur:
         levels = range(1, d + 1) if all_levels else (1,)
@@ -171,7 +174,7 @@ def ao_pipeline(depth: torch.Tensor, camera, params, normals=None,
     for l in levels:
         with trace.span(f"ao_render_l{l}") if trace.ON else trace.OFF:
             aos[l] = render_level(pyr[l], l, wp, camera, params, **nkw[l])
-    debug = {"linear_z": linz, "ao_levels": aos,
+    debug = {"linear_z": pyr[0], "ao_levels": aos,
              "pyramid": {l: pyr[l] for l in range(d + 1)}}
 
     if not params.enable_blur:
@@ -304,10 +307,9 @@ def single_scale_ao(depth, camera=None, params=None, impl: str = "auto",
     depth = _as_tensor(depth, device)
     h0, w0 = depth.shape[-2:]
     hp, wp = padded_shape(h0, w0)
-    linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
-                             camera)
-    ds2 = P.downsample2x(linz).contiguous()
-    ao = _select_render_impl(impl)(ds2, 1, wp, camera, params)
+    render = _select_render_impl(impl)
+    ds2 = _select_prepare_impl(impl)(depth, camera, 1, hp, wp)[0][1]
+    ao = render(ds2, 1, wp, camera, params)
     return ao[..., : -(-h0 // 2), : -(-w0 // 2)]
 
 
@@ -363,7 +365,7 @@ def _resolve_l1_and_lift(depth, prev_ao1, prev_d1, motion, camera, params,
     resolved = T.temporal_resolve_l1(cur1[..., :h1, :w1], d1c, prev_ao1,
                                      prev_d1, h0, w0, camera, tparams,
                                      motion, impl=impl)
-    rp = _pad_to_64(resolved, hp // 2, wp // 2).contiguous()
+    rp = P.pad_to(resolved, hp // 2, wp // 2).contiguous()
     if params.enable_blur:
         out = _select_upsample_impl(impl)(rp, dbg["pyramid"][1],
                                           dbg["pyramid"][0], params, wp,

@@ -26,7 +26,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
-           "render_dma.cu", "fused_zc.cu", "selftest.cu")
+           "render_dma.cu", "fused_zc.cu", "prepare.cu", "selftest.cu")
 HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh")
 # Each library binds its own symbols: two builds loaded in one process (an
 # older tree's kernels timed beside these) share the names of their
@@ -38,9 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-shared", "-Xlinker", "-Bsymbolic")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # Every launching entry point returns a cudaError_t; pointers, the host pair
-# table (of one level) and the stream are c_void_p, sizes c_int, tunables
+# table (of one level), the prologue's host array of output pointers and
+# the stream are c_void_p, sizes c_int, strides c_longlong, tunables
 # c_float (without argtypes ctypes would pass a Python float as a double).
 # The two rules return texels a thread.
 SIGNATURES = {
@@ -59,6 +61,9 @@ SIGNATURES = {
     "tpuao_fused_render_upsample_step_zc": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
         _F, _F, _F, _F, _F, _I, _P),
+    "tpuao_prepare_levels": (
+        _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P, _L, _L, _L, _L, _F,
+        _P, _I, _P),
     "tpuao_check_division": (_P, _I, _P),
     "tpuao_render_tile_rule": (_I, _I, _I, _I),
     "tpuao_chain_tile_rule": (_I, _I, _I, _I, _I),

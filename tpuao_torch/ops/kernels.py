@@ -2,10 +2,11 @@
 
 Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
 
-* a wrapper (``render_ao_level``, ``render_ao_level_normals``,
-  ``blur_upsample_step``, ``fused_render_upsample_step``,
-  ``windowed_resolve``, and the two variants that no ``impl`` of the
-  pipeline reaches, as in the JAX package: ``render_ao_level_dma`` and
+* a wrapper (``prepare_levels``, ``render_ao_level``,
+  ``render_ao_level_normals``, ``blur_upsample_step``,
+  ``fused_render_upsample_step``, ``windowed_resolve``, and the two
+  variants that no ``impl`` of the pipeline reaches, as in the JAX
+  package: ``render_ao_level_dma`` and
   ``fused_render_upsample_step_zc``): on a CPU tensor it runs the plain
   version; on a CUDA tensor it launches the kernel (``csrc/``, built by
   ``ops/_build.py`` at first use) or raises.  It never falls back;
@@ -24,6 +25,8 @@ repeats each one on its inputs (``utils/autotune.tune_frame`` sweeps them).
 
 The wrappers take float32, C-contiguous tensors whose leading dimensions
 (a batch) agree; the batch becomes the kernels' ``blockIdx.z``.  The
+prologue (``prepare_levels``) takes the caller's depth and normals as they
+come, converting a depth of another dtype or layout first.  The
 windowed resolve takes single (h, w) planes: the temporal path is one
 sequence per call.
 """
@@ -39,6 +42,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tpuao_torch.ops import prepare as P
 from tpuao_torch.ops import render as R
 from tpuao_torch.ops import temporal as T
 from tpuao_torch.ops import upsample as U
@@ -232,6 +236,92 @@ def _crop(crop_hw, hh: int, hw: int) -> tuple[int, int]:
     if not (1 <= h0 <= hh and 1 <= w0 <= hw):
         raise ValueError(f"crop_hw {crop_hw} outside the ({hh}, {hw}) output")
     return h0, w0
+
+
+# ---------------------------------------------------------------------------
+# 0. The prologue: pad, linearise, the pick-one pyramid and the slope
+#    levels in one launch (the JAX package leaves them to XLA)
+# ---------------------------------------------------------------------------
+
+def _check_prepare_dims(h0: int, w0: int, hp: int, wp: int,
+                        depth_levels: int) -> None:
+    if not (h0 <= hp and w0 <= wp and 0 <= depth_levels <= 6
+            and wp % 4 == 0 and hp % (1 << depth_levels) == 0
+            and wp % (1 << depth_levels) == 0):
+        raise ValueError(
+            f"prepare_levels: ({hp}, {wp}) must cover the ({h0}, {w0}) "
+            f"frame with both dims multiples of 2^{depth_levels} and the "
+            "width of 4 (depth_levels in [0, 6])")
+
+
+def _normals_strides(normals: torch.Tensor, lead: tuple, h0: int,
+                     w0: int) -> tuple[torch.Tensor, tuple]:
+    """``normals`` as a (batch, h0, w0, 3) view (channel-first input is
+    not copied) and its element strides (batch, row, column, channel)."""
+    _check("normals", normals)
+    cl = R.normals_channel_last(normals)
+    if tuple(cl.shape) != lead + (h0, w0, 3):
+        raise ValueError(f"normals: shape {tuple(normals.shape)}, expected "
+                         f"{lead + (h0, w0)} with 3 channels first or last")
+    cl = cl.reshape(-1, h0, w0, 3)  # a view but for an odd batch layout
+    return cl, tuple(cl.stride())
+
+
+def prepare_levels(depth: torch.Tensor, camera, depth_levels: int, hp: int,
+                   wp: int, normals=None):
+    """``ops/prepare.prepare_levels_plain`` in one launch of
+    ``csrc/prepare.cu``,
+    bit-equal to it: every level of the linear depth and, with
+    ``normals``, the slope planes of levels 1..d, straight from the
+    caller's depth and normals (read once, by their strides: a batch or
+    row slice of the depth, either layout of the normals, no copy).  A
+    depth or normals of another dtype is made float32 first, and a depth
+    whose rows are not dense is copied."""
+    _check_prepare_dims(*depth.shape[-2:], hp, wp, depth_levels)
+    if depth.device.type == "cpu":
+        return P.prepare_levels_plain(depth, camera, depth_levels, hp,
+                                      wp, normals)
+    _check_no_grad("prepare_levels", (depth, normals))
+    depth = depth.to(torch.float32)
+    _check("depth", depth)
+    lead = tuple(depth.shape[:-2])
+    h0, w0 = depth.shape[-2:]
+    batch = _batch(lead)
+    if depth.stride(-1) != 1:
+        depth = depth.contiguous()
+    depth = depth.reshape(batch, h0, w0)  # a view but for an odd layout
+    # the kernel's depth modes: 0 linear, 1 reversed-Z, 2 forward-Z
+    mode = (0 if camera.depth_mode == "linear" else
+            1 if camera.reversed_z else 2)
+    new = functools.partial(torch.empty, dtype=torch.float32,
+                            device=depth.device)
+    pyr = [new(*lead, hp >> l, wp >> l) for l in range(depth_levels + 1)]
+    ptrs = [x.data_ptr() for x in pyr] + [0] * (2 * depth_levels + 2)
+    slopes, nrm, strides, ts0 = None, None, (0, 0, 0, 0), 0.0
+    if normals is not None:
+        if normals.device != depth.device:
+            raise ValueError(f"normals: on {normals.device}, expected "
+                             f"{depth.device}")
+        nrm, strides = _normals_strides(normals.to(torch.float32), lead,
+                                        h0, w0)
+        slopes = [None] + [(new(*lead, hp >> l, wp >> l),
+                            new(*lead, hp >> l, wp >> l))
+                           for l in range(1, depth_levels + 1)]
+        for l in range(1, depth_levels + 1):
+            ptrs[depth_levels + 1 + l] = slopes[l][0].data_ptr()
+            ptrs[2 * depth_levels + 2 + l] = slopes[l][1].data_ptr()
+        ts0 = float(np.float32(2.0 * camera.tan_half_fov_h / wp))
+    outs = np.array(ptrs, np.uint64)
+    _launch("tpuao_prepare_levels", depth.data_ptr(), *depth.stride()[:2],
+            batch, h0, w0, hp, wp, depth_levels, mode,
+            float(np.float32(P.zmagic(camera))),
+            _ptr(nrm), *strides, ts0, outs.ctypes.data, depth.device.index,
+            _stream(depth.device))
+    _count(prepare_levels)
+    return pyr, slopes
+
+
+prepare_levels.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -689,9 +779,9 @@ def windowed_resolve(prev_ao: torch.Tensor, prev_d: torch.Tensor,
 
 windowed_resolve.launches = 0
 
-KERNELS = (render_ao_level, render_ao_level_normals, blur_upsample_step,
-           fused_render_upsample_step, windowed_resolve, render_ao_level_dma,
-           fused_render_upsample_step_zc)
+KERNELS = (prepare_levels, render_ao_level, render_ao_level_normals,
+           blur_upsample_step, fused_render_upsample_step, windowed_resolve,
+           render_ao_level_dma, fused_render_upsample_step_zc)
 
 
 def reset_launch_counts() -> None:

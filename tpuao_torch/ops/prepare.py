@@ -1,12 +1,52 @@
-"""AoPrepare stage: linearise, pick-one pyramid, parity-4 padding.
+"""AoPrepare stage: pad, linearise, pick-one pyramid, parity-4 padding.
 
-Counterpart of ``tpuao/ops/prepare.py``.  Plain tensor code: it is
-memory-bound elementwise work with no kernel of its own.
+Counterpart of ``tpuao/ops/prepare.py``.  Plain tensor code; the frame
+path's prologue, ``prepare_levels_plain``, runs it on the CPU and under
+``impl="jnp"``, and on the card is one launch of its kernel
+(``ops/kernels.prepare_levels``, ``csrc/prepare.cu``), bit-equal to it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpuao_torch.ops import render as R
+from tpuao_torch.ops.upsample import _edge_pad
+
+
+def prepare_levels_plain(depth: torch.Tensor, camera, depth_levels: int,
+                         hp: int, wp: int, normals=None):
+    """The frame program's prologue in plain PyTorch: the depth edge-padded
+    (bottom and right) to (hp, wp), linearised, and its pick-one pyramid,
+    each level dense; with ``normals`` (either layout) the slope planes,
+    edge-padded and picked alike (``ops/render.slope_pyramid``).  Returns
+    ``(levels, slopes)``: levels 0..d, and ``slopes[l] = (g_x, g_y)`` for
+    l in 1..d (``slopes[0]`` is None: no render reads it), or None without
+    normals.  On the card ``ops/kernels.prepare_levels`` is this in one
+    launch, bit-equal to it."""
+    h0, w0 = depth.shape[-2:]
+    linz = linearize_depth(pad_to(depth.to(torch.float32), hp, wp), camera)
+    pyr = [lvl.contiguous() for lvl in build_pyramid(linz, depth_levels)]
+    if normals is None:
+        return pyr, None
+    slopes = R.slope_pyramid(normals.to(torch.float32),
+                             camera.tan_half_fov_h, hp, wp, depth_levels,
+                             h0=h0, w0=w0)
+    return pyr, [None] + slopes[1:]
+
+
+def pad_to(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """``x`` (..., h, w) edge-padded at the bottom and right to (hp, wp)
+    (``x`` itself where it has that shape)."""
+    h, w = x.shape[-2:]
+    if (hp, wp) == (h, w):
+        return x
+    return _edge_pad(x, 0, hp - h, 0, wp - w)
+
+
+def zmagic(camera):
+    """``(far - near) / near``, the hardware-depth linearisation's scale."""
+    return (camera.far - camera.near) / camera.near
 
 
 def linearize_depth(depth: torch.Tensor, camera) -> torch.Tensor:
@@ -19,9 +59,8 @@ def linearize_depth(depth: torch.Tensor, camera) -> torch.Tensor:
     depth = depth.to(torch.float32)
     if camera.depth_mode == "linear":
         return depth
-    zmagic = (camera.far - camera.near) / camera.near
     d = depth if camera.reversed_z else 1.0 - depth
-    return 1.0 / (zmagic * d + 1.0)
+    return 1.0 / (zmagic(camera) * d + 1.0)
 
 
 def downsample2x(z: torch.Tensor) -> torch.Tensor:

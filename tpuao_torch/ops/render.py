@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuao_torch.ops.prepare import pad_parity4
+from tpuao_torch.ops import prepare as P
 from tpuao_torch.ops.upsample import _edge_pad
 from tpuao_torch.params import build_pair_table, sphere_radius_coef
 
@@ -191,7 +191,7 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
     radius_coef = sphere_radius_coef(
         level, full_width, camera.tan_half_fov_h, params.screenspace_diameter)
     h, w = ds.shape[-2:]
-    zp = pad_parity4(ds, HALO)
+    zp = P.pad_parity4(ds, HALO)
     use_n = params.use_normals and (normals_ds is not None
                                     or slopes_ds is not None)
     gxy = None

@@ -17,8 +17,6 @@ are ``utils.roofline.launch_census``.
 
 from __future__ import annotations
 
-import torch
-
 from tpuao_torch.params import padded_shape
 from tpuao_torch.utils.timing import cuda_graph_ms
 
@@ -28,8 +26,10 @@ def stage_times_ms(depth, camera, params, normals=None, impl: str = "auto",
     """``{stage: ms}`` of one call of the frame program on ``depth``
     ((H, W) or a batch; NumPy goes to ``device``, default the card).
 
-    Each stage is timed on its real inputs: ``prepare`` (pad to 64,
-    linearise, the pyramid's dense levels), ``render_l{l}`` on level l
+    Each stage is timed on its real inputs: ``prepare`` (the prologue,
+    ``ops/kernels.prepare_levels``: pad to 64, linearise, the pyramid's
+    dense levels and, with normals, the slope levels; one launch on the
+    card but under ``"jnp"``), ``render_l{l}`` on level l
     (with the slope planes when ``normals`` are given and
     ``params.use_normals``), ``upsample_l{l}`` the chain step l -> l-1 on
     the combined AO the steps below it made (pre-min with level l's AO
@@ -41,7 +41,7 @@ def stage_times_ms(depth, camera, params, normals=None, impl: str = "auto",
     ``cuda_graph_ms``) is required off the card.
     """
     from tpuao_torch.models.pipeline import (_as_tensor, _normals_on,
-                                             _pad_to_64, ao_pipeline)
+                                             ao_pipeline)
     from tpuao_torch.ops import kernels as K
     from tpuao_torch.ops import prepare as P
     from tpuao_torch.ops import render as R
@@ -60,21 +60,21 @@ def stage_times_ms(depth, camera, params, normals=None, impl: str = "auto",
     plain = impl == "jnp"
     render = R.render_ao_level if plain else K.render_ao_level
     upsample = U.blur_upsample_step if plain else K.blur_upsample_step
+    prepare = P.prepare_levels_plain if plain else K.prepare_levels
     out = {}
-
-    def prep():
-        linz = P.linearize_depth(_pad_to_64(depth.to(torch.float32), hp, wp),
-                                 camera)
-        return [lvl.contiguous() for lvl in P.build_pyramid(linz, d)]
-
-    out["prepare"] = timer(prep)
-    pyr = prep()
-    skw = [{} for _ in range(d + 1)]
     if normals is not None and params.use_normals:
         normals = _normals_on(normals, depth.device)
-        skw = [{"slopes_ds": g} for g in R.slope_pyramid(
-            normals.to(torch.float32), camera.tan_half_fov_h, hp, wp, d,
-            h0=h0, w0=w0)]
+    else:
+        normals = None
+
+    def prep():
+        return prepare(depth, camera, d, hp, wp, normals)
+
+    out["prepare"] = timer(prep)
+    pyr, slopes = prep()
+    skw = [{} for _ in range(d + 1)]
+    if slopes is not None:
+        skw = [{}] + [{"slopes_ds": g} for g in slopes[1:]]
     for l in range(1, d + 1):
         out[f"render_l{l}"] = timer(lambda l=l: render(
             pyr[l], l, wp, camera, params, **skw[l]))

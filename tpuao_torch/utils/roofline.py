@@ -124,6 +124,27 @@ def floors_ms(measured_ms: float, h: int, w: int, ops: float | None = None,
 
 # -- per-kernel work ---------------------------------------------------------
 
+def prepare_work(batch: int, h0: int, w0: int, depth_levels: int,
+                 normals: bool = False) -> tuple[int, int]:
+    """Operations and bytes of one prologue launch (``csrc/prepare.cu``)
+    over ``batch`` (h0, w0) frames: the depth read once, linz written at
+    the padded (hp, wp) and each level 1..d once; with normals their rows
+    that the levels sample (every even row, and the last one where the
+    pad clamps to it), read whole (a channel-last row's even texels share
+    its sectors), and 2 slope planes a level.  Operations: 3 a linz texel
+    (hardware depth), 4 a level-1 texel's pair of slopes (the deeper
+    levels copy them)."""
+    hp, wp = padded_shape(h0, w0)
+    levels = sum((hp >> l) * (wp >> l) for l in range(1, depth_levels + 1))
+    elems = h0 * w0 + hp * wp + levels
+    ops = 3 * hp * wp
+    if normals:
+        rows = len({min(y, h0 - 1) for y in range(0, hp, 2)})
+        elems += 3 * rows * w0 + 2 * levels
+        ops += 4 * (hp >> 1) * (wp >> 1)
+    return batch * ops, 4 * batch * elems
+
+
 def render_ops(npairs: int, tangent: bool = False) -> int:
     """FP32 operations of one rendered texel."""
     return (34 if tangent else 23) * npairs + (8 if tangent else 6)
@@ -218,12 +239,14 @@ def launch_census(fn, calls: int = 20) -> dict[str, tuple[int, float]]:
 def census_by_wrapper(census: dict) -> dict[str, int]:
     """``launch_census``'s launches by the wrapper of ``ops/kernels.py``
     that owns each kernel of the frame path (``render_kernel<NP, MODE,
-    NT>`` with MODE 0 is the depth-only render); other kernels (prepare's,
-    copies) are left out.  A replayed CUDA graph calls no wrapper, so this
-    is how its launches are read from the card."""
+    NT>`` with MODE 0 is the depth-only render); other kernels (copies,
+    PyTorch's own) are left out.  A replayed CUDA graph calls no wrapper,
+    so this is how its launches are read from the card."""
     out: dict[str, int] = {}
     for name, (n, _) in census.items():
-        if "render_kernel<" in name:
+        if "prepare_levels_kernel<" in name:
+            k = "prepare_levels"
+        elif "render_kernel<" in name:
             mode = int(name.split("<")[1].split(",")[1])
             k = "render_ao_level" if mode == 0 else "render_ao_level_normals"
         elif "upsample_kernel<" in name:

@@ -18,8 +18,10 @@ where it has the stage):
 * ``ao_entry.render_frame``, ``ao_entry.render_views``: the entry points
   (``models/pipeline.render_frame``, ``parallel/sharding.
   render_views_sharded``), counting the call's ``frames``;
-* ``ao_prepare`` (pad, linearise, pyramid) and ``ao_slopes`` (the normals
-  prologue) in ``models/pipeline.ao_pipeline``;
+* ``ao_prepare`` (the prologue, ``ops/kernels.prepare_levels``: pad,
+  linearise, pyramid and the slope levels, one launch on the card) and
+  ``ao_slopes`` (the rest of the normals branch: the raw-normals pyramid
+  under ``"pallas"``) in ``models/pipeline.ao_pipeline``;
 * ``ao_render_l{l}``, ``ao_upsample_l{l}``, ``ao_fused_l{l}``: each level's
   render and each chain step (``l`` the level read);
 * ``ao_launch``: one call into the kernel library (``ops/kernels._launch``).
