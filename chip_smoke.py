@@ -157,9 +157,9 @@ Phases, one or more lines each:
               and the fused steps at every instance of their texels a
               thread at every level of 1080p, 4K and 8K at one and four
               frames a call, each bit-equal to the rule's output (the
-              rule's within its bound of the plain version), the Python
-              rule equal to the launcher's, a value with no instance
-              refused, graph-replay ms of each instance beside the rule's;
+              rule's within its bound of the plain version), a value with
+              no instance refused (0 at the C entry point), graph-replay
+              ms of each instance beside the rule's;
               ``tune`` through the CLI (1080p at one and four frames,
               1440p, 1080p with normals) into one cache, then a fresh
               process rendering a 1440p PFM with ``--autotune-cache``,
@@ -2560,16 +2560,6 @@ def phase_sections(chk, dev, K, F, card):
     return paths, records
 
 
-def tile_rule_c(lib, kernel, batch, h, w, h0, w0) -> int:
-    """The launcher's own texels a thread (csrc), for a launch of
-    ``kernel`` over ``batch`` levels of (h, w) cropped to (h0, w0)."""
-    if kernel == "render_ao_level":
-        return lib.tpuao_render_tile_rule(0, batch, h, w)
-    if kernel == "render_ao_level_normals":
-        return lib.tpuao_render_tile_rule(1, batch, h, w)
-    return lib.tpuao_chain_tile_rule(batch, h, w, h0, w0)
-
-
 def tile_cases(K, cam, par, pn, pyr, spyr, npyr, wp, h0, w0):
     """Phase 19a's launches of one frame (batch): (kernel, Checks key,
     label, (lh, lw), crop, call, plain call, tolerance) for the render at
@@ -2644,9 +2634,10 @@ def phase_tune(chk, dev, K, P, R, F, card, tmp):
     upsample and the fused steps at every instance of their texels a
     thread, at every level of 1080p, 4K and 8K frames at one and four
     frames a call: each output bit-equal to the rule's, the rule's within
-    its bound of the plain version, the Python rule equal to the
-    launcher's, a value with no instance refused by the table and by the
-    launcher, and the graph-replay ms of each instance beside the rule's;
+    its bound of the plain version, a value with no instance refused by
+    the table and by the launcher (0, which the table reads as no entry,
+    at the C entry point), and the graph-replay ms of each instance
+    beside the rule's;
     (b) ``tune`` through the CLI (1080p at one and four frames, 1440p,
     1080p with normals) into one cache file, then a fresh process
     rendering a 1440p PFM with ``--autotune-cache``, bit-equal to the
@@ -2684,11 +2675,6 @@ def phase_tune(chk, dev, K, P, R, F, card, tmp):
             for kernel, key, label, (lh, lw), crop, fn, plain, tol in cases:
                 h_out, w_out = crop or (2 * lh, 2 * lw)
                 rule = L.rule_nt(kernel, batch, lh, lw, h_out, w_out)
-                rule_c = tile_rule_c(lib, kernel, batch, lh, lw, h_out, w_out)
-                if rule != rule_c:
-                    raise RuntimeError(f"{size} x{batch} {label}: the Python "
-                                       f"rule says nt={rule}, the launcher's "
-                                       f"{rule_c}")
                 ref = fn()
                 chk.close(key, f"{size} x{batch} {label} rule vs plain", ref,
                           plain(), tol=tol, quiet=True)
@@ -2738,10 +2724,27 @@ def phase_tune(chk, dev, K, P, R, F, card, tmp):
                         raise RuntimeError(f"{label}: nt={bad} launched")
                     finally:
                         L.clear_tuned_tiles()
+                    # 0 is no entry to the table (the launch takes the
+                    # rule): the C entry point gets it directly, with the
+                    # arguments the wrapper passes
+                    launched, saved = [], K._launch
+                    K._launch = lambda entry, *args: launched.append(
+                        (entry, args))
+                    try:
+                        kept = fn()
+                    finally:
+                        K._launch = saved
+                    [(entry, args)] = launched
+                    err = getattr(lib, entry)(*args[:-3], 0, *args[-2:])
+                    torch.cuda.synchronize()
+                    if err != 1:  # cudaErrorInvalidValue
+                        raise RuntimeError(f"{label}: nt=0 gave {err}")
+                    del kept
                     refused.add(kernel)
-                print(f"  {sorted(refused)}: a value with no instance raises "
-                      f"(ValueError in the table, cudaErrorInvalidValue "
-                      f"from the launcher)", flush=True)
+                print(f"  {sorted(refused)}: a value with no instance, 0 "
+                      f"among them, raises (ValueError in the table, "
+                      f"cudaErrorInvalidValue from the launcher)",
+                      flush=True)
             del pyr, spyr, npyr, cases
             torch.cuda.empty_cache()
 

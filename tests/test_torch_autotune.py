@@ -316,8 +316,8 @@ def test_cli_tune_refuses_foreign_device_cache(tmp_path, monkeypatch,
 # -- launch_opts ---------------------------------------------------------------
 
 def test_tile_rows_defaults_and_validity():
-    """0 (the launcher's rule) for every launch not in the table; only the
-    instances each kernel has are taken."""
+    """0 (no entry) for every launch not in the table; only the instances
+    each kernel has are taken."""
     for kernel, nts in L.VALID_NT.items():
         assert L.tile_rows(kernel, 1, 544, 960) == 0
         for nt in nts:
@@ -348,12 +348,47 @@ def test_tile_rows_defaults_and_validity():
     (FUSED, 1, (136, 240), None, 1),
     (FUSED, 1, (544, 960), (1080, 1920), 2),
     (FUSED, 4, (544, 960), (1080, 1920), 3),
-    ("blur_upsample_step", 1, (2176, 3840), (4320, 7680), 3)])
-def test_rule_nt_is_the_launchers_rule(kernel, batch, lo, crop, want):
+    ("blur_upsample_step", 1, (2176, 3840), (4320, 7680), 3),
+    # the HIGH 1080p frame at the cells' other batches: two views a card
+    # (the four-card rig) and the eight-view rig on one card
+    ("render_ao_level", 2, (68, 120), None, 1),
+    ("blur_upsample_step", 2, (68, 120), None, 1),
+    (FUSED, 2, (136, 240), None, 1),
+    (FUSED, 2, (272, 480), None, 2),
+    (FUSED, 2, (544, 960), (1080, 1920), 3),
+    ("render_ao_level", 8, (68, 120), None, 1),
+    ("blur_upsample_step", 8, (68, 120), None, 1),
+    (FUSED, 8, (136, 240), None, 2),
+    (FUSED, 8, (272, 480), None, 3),
+    (FUSED, 8, (544, 960), (1080, 1920), 3)])
+def test_rule_nt(kernel, batch, lo, crop, want):
     """``rule_nt`` at the launches PERF.md and the card's sweep name:
     1080p step 1->0 at NT 2 with one frame (672 blocks), 3 with four
-    (1664), the coarse levels at 1."""
+    (1664), the coarse levels at 1; at batches 2 and 8 the values the
+    C launchers' own rule gave before the rule left them (the card's
+    check against an older tree's library)."""
     assert L.rule_nt(kernel, batch, *lo, *(crop or ())) == want
+
+
+@pytest.mark.parametrize("kernel", sorted(L.VALID_NT))
+def test_tiles_resolve_every_launch_to_an_instance(kernel):
+    """``kernels._tiles`` gives the launcher an instance, never 0: the
+    table's value where it holds one (``tile_rows``), else ``rule_nt``.
+    Outside a ``record_launches`` block it builds no call to repeat the
+    launch (a wrapper of None would fail there)."""
+    for batch, (h, w), crop in ((1, (68, 120), None),
+                                (2, (544, 960), (1080, 1920)),
+                                (8, (7, 9), (13, 17))):
+        x = torch.zeros(batch, h, w)
+        assert L.tile_rows(kernel, batch, h, w) == 0
+        got = K._tiles(kernel, x, h, w, crop, None)
+        assert got == L.rule_nt(kernel, batch, h, w, *(crop or ()))
+        assert got in L.VALID_NT[kernel]
+        for nt in L.VALID_NT[kernel]:
+            L.set_tuned_tiles(kernel, batch, h, w, nt)
+            assert K._tiles(kernel, x, h, w, crop, None) == nt == \
+                L.tile_rows(kernel, batch, h, w)
+        L.clear_tuned_tiles()
 
 
 def test_record_launches_lists_the_frame_programs_launches():

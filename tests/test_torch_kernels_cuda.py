@@ -902,7 +902,7 @@ TILE_CASES = [(kernel, nt) for kernel, nts in
 @pytest.mark.parametrize("kernel,nt", TILE_CASES)
 def test_every_tile_rows_instance_bit_equal_to_the_rule(dev, kernel, nt):
     """Each kernel at each texels-a-thread instance (``launch_opts``),
-    forced through the table, equals its output at the launcher's rule
+    forced through the table, equals its output at the rule's instance
     bit for bit: at level 1 of 1080p (544 x 960) and at an odd 37 x 50
     level, one frame and three; the table's entry is exactly the launch's
     key."""
@@ -924,45 +924,41 @@ def test_every_tile_rows_instance_bit_equal_to_the_rule(dev, kernel, nt):
 @pytest.mark.parametrize("kernel,bad", [
     ("render_ao_level", 3), ("render_ao_level", 5),
     ("render_ao_level_normals", 2), ("blur_upsample_step", 4),
-    ("fused_render_upsample_step", 4), ("fused_render_upsample_step", -1)])
-def test_a_tile_rows_value_with_no_instance_raises(dev, kernel, bad):
+    ("fused_render_upsample_step", 4), ("fused_render_upsample_step", -1),
+    ("render_ao_level", 0), ("render_ao_level_normals", 0),
+    ("blur_upsample_step", 0), ("fused_render_upsample_step", 0)])
+def test_a_tile_rows_value_with_no_instance_raises(dev, kernel, bad,
+                                                    monkeypatch):
     """The table refuses a value the kernel has no instance for, and the
     launcher refuses one that gets past it (cudaErrorInvalidValue): no
-    launch falls back to the rule."""
+    launch falls back to a rule.  0 is no entry to the table (the launch
+    takes the rule), so it goes to the C entry point directly, with the
+    arguments the wrapper passes."""
+    from tpuao_torch.ops import _build
     from tpuao_torch.utils import launch_opts as L
 
     call = _tile_call(dev, kernel, 37, 50, 1)
     with pytest.raises(ValueError, match="no instance"):
         L.set_tuned_tiles(kernel, 1, 37, 50, bad)
+    if bad == 0:
+        launched = []
+        monkeypatch.setattr(K, "_launch",
+                            lambda entry, *args: launched.append((entry,
+                                                                  args)))
+        kept = call()  # keeps the output's memory while the entry runs
+        [(entry, args)] = launched
+        assert args[-3] == L.rule_nt(kernel, 1, 37, 50, 73, 99) != 0
+        lib = _build.load()
+        assert getattr(lib, entry)(*args[:-3], 0, *args[-2:]) == 1  # Invalid
+        torch.cuda.synchronize()
+        del kept
+        return
     L._TUNED[(kernel, 1, 37, 50)] = bad
     try:
         with pytest.raises(RuntimeError, match="CUDA error"):
             call()
     finally:
         L.clear_tuned_tiles()
-
-
-def test_tile_rule_equals_the_launchers(dev):
-    """``launch_opts.rule_nt`` is the launchers' own rule (csrc's
-    ``render_rule_nt`` and ``chain_nt``) at the HIGH and ULTRA launches of
-    1080p, 4K and 8K at one and four frames."""
-    from tpuao_torch.ops import _build
-    from tpuao_torch.utils import launch_opts as L
-
-    lib = _build.load()
-    for h0, w0 in ((1080, 1920), (2160, 3840), (4320, 7680), (100, 150)):
-        hp, wp = (-(-h0 // 64) * 64, -(-w0 // 64) * 64)
-        for batch in (1, 4):
-            for l in range(1, 5):
-                h, w = hp >> l, wp >> l
-                crop = (h0, w0) if l == 1 else (2 * h, 2 * w)
-                assert L.rule_nt("render_ao_level", batch, h, w) == \
-                    lib.tpuao_render_tile_rule(0, batch, h, w)
-                assert L.rule_nt("render_ao_level_normals", batch, h, w) == \
-                    lib.tpuao_render_tile_rule(2, batch, h, w) == 1
-                assert L.rule_nt("blur_upsample_step", batch, h, w,
-                                 *crop) == \
-                    lib.tpuao_chain_tile_rule(batch, h, w, *crop)
 
 
 def test_launch_census_and_stage_times_read_the_device(dev):

@@ -83,7 +83,6 @@ constexpr int kChainHiW = 2 * kChainOutW;  // staged hi texels of a row
 // staged depth columns of the fused steps' render: a 4-aligned cover of
 // padded columns j0-17 .. j0+79
 constexpr int kChainPitch = kChainCols + 36;
-constexpr int kSMs = 132;  // H100 SXM
 
 template <int NT>
 struct ChainShape {
@@ -95,28 +94,9 @@ struct ChainShape {
   static_assert(sizeof(Tile) % 16 == 0, "tiles keep 16-byte alignment");
 };
 
-// Blocks of a tiled launch over the (h0, w0) output at NT texels a thread.
-template <int NT>
-long chain_blocks(const ChainArgs& a, int batch) {
-  constexpr int kOutH = ChainShape<NT>::kOutH;
-  return (long)(((a.w0 + 1) / 2 + kChainOutW - 1) / kChainOutW) *
-         (((a.h0 + 1) / 2 + kOutH - 1) / kOutH) * batch;
-}
-
-// Texels a thread for a tiled launch (more of them, less of the tile's
-// apron): 3 where that still makes two full waves of three blocks an SM,
-// else 2 where every SM still gets a block, else 1.  (At one wave and a
-// bit, the 1080p fused step 1->0, 3 measured slower than 2: the last wave
-// runs almost empty.)
-inline int chain_nt(const ChainArgs& a, int batch) {
-  if (chain_blocks<3>(a, batch) >= 2 * 3 * kSMs) return 3;
-  if (chain_blocks<2>(a, batch) >= kSMs) return 2;
-  return 1;
-}
-
-// Whether a tiled chain launch may take `nt` texels a thread: 0 (chain_nt)
-// or an instance that exists (3, 2, 1).
-inline bool chain_nt_ok(int nt) { return nt >= 0 && nt <= 3; }
+// Whether a tiled chain launch may take `nt` texels a thread: an instance
+// that exists (3, 2, 1).  The caller picks it (utils/launch_opts.py).
+inline bool chain_nt_ok(int nt) { return nt >= 1 && nt <= 3; }
 
 // Whether 8-byte copies of texel pairs may be used: hi rows start on
 // even texels (2lw texels a row, 4*lh*lw a plane), so only the base

@@ -28,12 +28,11 @@
 // depth (chain_step.cuh's per-position stages), spread over all 512
 // threads: each thread writes two adjacent hi texels of one hi row, so
 // the output writes stay coalesced, and the (h0, w0) crop is applied
-// here.  The level's AO never reaches device memory.  NT is 3 on large
-// grids, else 2 or 1 (chain_step.cuh's chain_nt), unless the launch's nt
-// argument forces one (utils/launch_opts.py); at 3 the tiles take
-// 67 KB (dynamic shared memory, opted in).  The filter and 2x stages
-// round their 31 reciprocals and divisions a lo texel as IEEE does,
-// without a branch (chain_step.cuh).
+// here.  The level's AO never reaches device memory.  NT is the launch's
+// nt argument (utils/launch_opts.py: 3 on large grids, else 2 or 1); at
+// 3 the tiles take 67 KB (dynamic shared memory, opted in).  The filter
+// and 2x stages round their 31 reciprocals and divisions a lo texel as
+// IEEE does, without a branch (chain_step.cuh).
 //
 // Measured: PERF.md (chip_smoke.py phase 12).
 
@@ -149,12 +148,11 @@ cudaError_t launch_fused_nt(const ChainArgs& a, const PairTable& pt,
   return cudaGetLastError();
 }
 
-// Texels a thread: `nt`, or by waves where it is 0 (chain_step.cuh's
-// chain_nt).
+// Texels a thread: `nt`, which chain_nt_ok has checked.
 template <int NP>
 cudaError_t launch_fused(const ChainArgs& a, const PairTable& pt, int batch,
                          int vec, int nt, int device, cudaStream_t s) {
-  switch (nt ? nt : chain_nt(a, batch)) {
+  switch (nt) {
     case 3: return launch_fused_nt<NP, 3>(a, pt, batch, vec, device, s);
     case 2: return launch_fused_nt<NP, 2>(a, pt, batch, vec, device, s);
     default: return launch_fused_nt<NP, 1>(a, pt, batch, vec, device, s);
@@ -165,9 +163,8 @@ cudaError_t launch_fused(const ChainArgs& a, const PairTable& pt, int batch,
 
 // ds, c1: (batch, lh, lw); hi_d: (batch, 2lh, 2lw); out: (batch, h0, w0),
 // all float32 on the device; pairs: host array of npairs tpuao::Pair of
-// this level; nt: texels a thread (3, 2 or 1), 0 for the rule (chain_nt).
-// Returns the launch's cudaError_t (cudaErrorInvalidValue for an nt with
-// no instance).
+// this level; nt: texels a thread (3, 2 or 1).  Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for an nt with no instance).
 extern "C" int tpuao_fused_render_upsample_step(
     const float* ds, const float* c1, const float* hi_d, float* out,
     int batch, int lh, int lw, int h0, int w0, const void* pairs, int npairs,

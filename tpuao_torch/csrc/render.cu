@@ -114,36 +114,19 @@ void launch_render_nt(const float* z, const float* a, const float* b,
                                         strength, scale, vec);
 }
 
-// Blocks of a launch at NT texels a thread.
-inline long render_blocks(int batch, int h, int w, int nt) {
-  const int rows = kRenderThreadRows * nt;
-  return (long)((w + kRenderCols - 1) / kRenderCols) *
-         ((h + rows - 1) / rows) * batch;
-}
-
-// Texels a thread by the rule: depth-only the most of 4, 2, 1 that still
-// gives every SM a block (fewer halo rows staged a texel); with the
-// tangent term 1, which measured faster than 2 or 4 (PERF.md).
-inline int render_rule_nt(int mode, int batch, int h, int w) {
-  if (mode != kDepthOnly) return 1;
-  if (render_blocks(batch, h, w, 4) >= 132) return 4;
-  if (render_blocks(batch, h, w, 2) >= 132) return 2;
-  return 1;
-}
-
-// Whether a launch may take `nt` texels a thread: 0 (the rule), or an
-// instance that exists (4, 2, 1 depth-only; 1 with the tangent term).
+// Whether a launch may take `nt` texels a thread: an instance that exists
+// (4, 2, 1 depth-only; 1 with the tangent term).  The caller picks it
+// (utils/launch_opts.py).
 inline bool render_nt_ok(int mode, int nt) {
-  return nt == 0 || nt == 1 || (mode == kDepthOnly && (nt == 2 || nt == 4));
+  return nt == 1 || (mode == kDepthOnly && (nt == 2 || nt == 4));
 }
 
-// nt: texels a thread, 0 for the rule; render_nt_ok has checked it.
+// nt: texels a thread; render_nt_ok has checked it.
 template <int NP, int MODE>
 void launch_render_np(const float* z, const float* a, const float* b,
                       float* out, int batch, int h, int w,
                       const PairTable& pt, float falloff, float strength,
                       float scale, int vec, int nt, cudaStream_t s) {
-  if (nt == 0) nt = render_rule_nt(MODE, batch, h, w);
   if constexpr (MODE == kDepthOnly) {
     if (nt == 4)
       return launch_render_nt<NP, MODE, 4>(z, a, b, out, batch, h, w, pt,
@@ -191,9 +174,9 @@ const char* tpuao_error_string(int err) {
 }
 
 // z, out: (batch, h, w) float32 on the device; pairs: host array of
-// npairs tpuao::Pair of this level; nt: texels a thread (4, 2 or 1), 0 for
-// the rule (render_rule_nt).  Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for an nt with no instance).
+// npairs tpuao::Pair of this level; nt: texels a thread (4, 2 or 1).
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for an nt with
+// no instance).
 int tpuao_render_ao_level(const float* z, float* out, int batch, int h, int w,
                           const void* pairs, int npairs, float falloff,
                           float strength, int nt, int device, void* stream) {
@@ -206,8 +189,7 @@ int tpuao_render_ao_level(const float* z, float* out, int batch, int h, int w,
 // The normals path.  mode 1 (slopes): a, b = g_x, g_y (batch, h, w),
 // scale = off_scale; mode 2 (raw normals): a = (batch, 3, h, w)
 // channel-first normals, b unused, scale = texel_scale.  m2: host array of
-// npairs floats.  nt: 1, or 0 for the rule (1).  Returns the launch's
-// cudaError_t.
+// npairs floats.  nt: 1.  Returns the launch's cudaError_t.
 int tpuao_render_ao_level_normals(const float* z, const float* a,
                                   const float* b, float* out, int batch,
                                   int h, int w, const void* pairs,
@@ -225,12 +207,6 @@ int tpuao_render_ao_level_normals(const float* z, const float* a,
                                    m2, npairs, falloff, strength, scale, nt,
                                    device, stream);
   return cudaErrorInvalidValue;
-}
-
-// The rule's texels a thread for a launch over (batch, h, w): mode 0
-// depth-only, 1 or 2 with the tangent term (render_rule_nt).
-int tpuao_render_tile_rule(int mode, int batch, int h, int w) {
-  return tpuao::render_rule_nt(mode, batch, h, w);
 }
 
 }  // extern "C"

@@ -12,6 +12,10 @@
 
 namespace tpuao {
 
+// Blocks of each check's grid: a fixed number for a grid-stride walk over
+// every value, not a property of the card.
+constexpr int kCheckBlocks = 4224;
+
 __device__ __forceinline__ uint32_t mix32(uint32_t v) {
   v ^= v >> 16;
   v *= 0x7feb352du;
@@ -61,9 +65,9 @@ extern "C" int tpuao_check_division(unsigned long long* bad, int device,
   const DeviceScope scope(device);
   if (scope.status() != cudaSuccess) return scope.status();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  check_rcp_kernel<<<4 * kSMs * 8, 256, 0, s>>>(bad);
+  check_rcp_kernel<<<kCheckBlocks, 256, 0, s>>>(bad);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  check_div_kernel<<<4 * kSMs * 8, 256, 0, s>>>(bad);
+  check_div_kernel<<<kCheckBlocks, 256, 0, s>>>(bad);
   return cudaGetLastError();
 }

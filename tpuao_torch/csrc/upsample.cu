@@ -20,11 +20,11 @@
 // second group that lands while the tile is filtered.  Every thread
 // filters; the 2x goes one hi row per warp pass, each thread writing two
 // adjacent hi texels as one 8-byte store, so a warp writes one contiguous
-// run of the row.  The (h0, w0) crop is applied here.  NT is 3 on large
-// grids, else 2 or 1 (chain_step.cuh's chain_nt), so that the small
-// levels still spread over the SMs, unless the launch's nt argument
-// forces one (utils/launch_opts.py); at NT = 3 with pre-min and blend the
-// block takes 65 KB (dynamic shared memory, opted in), three blocks an SM.
+// run of the row.  The (h0, w0) crop is applied here.  NT is the
+// launch's nt argument (utils/launch_opts.py: 3 on large grids, else 2 or
+// 1, so that the small levels still spread over the SMs); at NT = 3 with
+// pre-min and blend the block takes 65 KB (dynamic shared memory, opted
+// in), three blocks an SM.
 //
 // Measured: PERF.md (chip_smoke.py phase 12); no spill at 36-40
 // registers.
@@ -122,15 +122,15 @@ cudaError_t launch_upsample_nt(const ChainArgs& a, int batch, int device,
 template <bool kMin, bool kBlend>
 cudaError_t launch_upsample(const ChainArgs& a, int batch, int nt,
                             int device, cudaStream_t s) {
-  switch (nt ? nt : chain_nt(a, batch)) {
+  switch (nt) {
     case 3: return launch_upsample_nt<3, kMin, kBlend>(a, batch, device, s);
     case 2: return launch_upsample_nt<2, kMin, kBlend>(a, batch, device, s);
     default: return launch_upsample_nt<1, kMin, kBlend>(a, batch, device, s);
   }
 }
 
-// Launches one upsample step over `batch` frames at `nt` texels a thread
-// (0: chain_nt); returns the cudaError_t.
+// Launches one upsample step over `batch` frames at `nt` texels a thread;
+// returns the cudaError_t.
 inline cudaError_t launch_chain_step(const ChainArgs& a, int batch, int nt,
                                      int device, void* stream) {
   if (batch < 1 || batch > 65535 || a.lh < 1 || a.lw < 1 || a.h0 < 1 ||
@@ -160,14 +160,4 @@ extern "C" int tpuao_blur_upsample_step(const float* lo_ao, const float* lo_ao2,
   const ChainArgs a{lo_ao, lo_ao2, lo_d, hi_d, hi_blend, out, lh, lw, h0, w0,
                     k_blur, k_up, nfs, 0.0f, 0.0f};
   return launch_chain_step(a, batch, nt, device, stream);
-}
-
-// The rule's texels a thread (chain_nt) for a chain step from (lh, lw) to
-// the (h0, w0) crop over `batch` frames: the upsample and fused steps'.
-extern "C" int tpuao_chain_tile_rule(int batch, int lh, int lw, int h0,
-                                     int w0) {
-  using namespace tpuao;
-  const ChainArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                    lh, lw, h0, w0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  return chain_nt(a, batch);
 }

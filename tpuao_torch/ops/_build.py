@@ -9,6 +9,11 @@ library's name carries a hash of the sources and flags, so an edit is
 never served a stale build.  ``--use_fast_math`` is deliberately absent:
 IEEE division and ``powf`` keep the kernels within 1e-5 of their plain
 versions.
+
+``load`` also loads an older tree's kernels, built to time them beside
+these.  Its launch entry points must have this tree's signatures, as
+those of every tree with ``utils/launch_opts.py`` have: the tiled
+launches take their texels a thread (``nt``) as an argument.
 """
 
 from __future__ import annotations
@@ -44,7 +49,6 @@ _L = ctypes.c_longlong
 # table (of one level), the prologue's host array of output pointers and
 # the stream are c_void_p, sizes c_int, strides c_longlong, tunables
 # c_float (without argtypes ctypes would pass a Python float as a double).
-# The two rules return texels a thread.
 SIGNATURES = {
     "tpuao_render_ao_level": (
         _P, _P, _I, _I, _I, _P, _I, _F, _F, _I, _I, _P),
@@ -65,14 +69,7 @@ SIGNATURES = {
         _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P, _L, _L, _L, _L, _F,
         _P, _I, _P),
     "tpuao_check_division": (_P, _I, _P),
-    "tpuao_render_tile_rule": (_I, _I, _I, _I),
-    "tpuao_chain_tile_rule": (_I, _I, _I, _I, _I),
 }
-# The entry points whose launches take texels a thread (``nt``, the argument
-# before ``device``; utils/launch_opts.py).  An older tree's library, which
-# has no ``tpuao_chain_tile_rule``, has them without it (``takes_nt``).
-NT_ENTRIES = ("tpuao_render_ao_level", "tpuao_render_ao_level_normals",
-              "tpuao_blur_upsample_step", "tpuao_fused_render_upsample_step")
 
 
 def find_nvcc() -> str:
@@ -158,16 +155,12 @@ def build(csrc: pathlib.Path = CSRC) -> pathlib.Path:
 @functools.lru_cache(maxsize=None)
 def load(csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's types (an
-    older tree's library may lack the newer entry points, and its launches
-    may take no ``nt``: ``lib.takes_nt``)."""
+    older tree's library may lack the newer entry points)."""
     lib = ctypes.CDLL(str(build(csrc)))
     own = pathlib.Path(csrc).resolve() == CSRC
-    lib.takes_nt = own or hasattr(lib, "tpuao_chain_tile_rule")
     for name, argtypes in SIGNATURES.items():
         if not own and not hasattr(lib, name):
             continue
-        if name in NT_ENTRIES and not lib.takes_nt:
-            argtypes = argtypes[:-3] + argtypes[-2:]
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

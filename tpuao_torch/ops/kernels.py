@@ -19,9 +19,10 @@ Counterpart of ``tpuao/ops/pallas_kernels.py``.  Each kernel has
   tally, and the graph's replays add it (``add_launches``).
 
 The render, upsample and fused wrappers pass each launch's texels a thread
-from ``utils/launch_opts.tile_rows`` (0: the launcher's own rule), and
-``record_launches`` lists the launches a program makes, with a call that
-repeats each one on its inputs (``utils/autotune.tune_frame`` sweeps them).
+as ``utils/launch_opts.nt_for`` resolves it (the tuned table, else the
+rule), and ``record_launches`` lists the launches a program makes, with a
+call that repeats each one on its inputs (``utils/autotune.tune_frame``
+sweeps them).
 
 The wrappers take float32, C-contiguous tensors whose leading dimensions
 (a batch) agree; the batch becomes the kernels' ``blockIdx.z``.  The
@@ -142,12 +143,6 @@ def _launch(entry: str, *args) -> None:
 
     with trace.span("ao_launch") if trace.ON else trace.OFF:
         lib = _build.load()
-        if entry in _build.NT_ENTRIES and not lib.takes_nt:
-            # an older tree's kernels, timed beside these: their rule only
-            if args[-3]:
-                raise RuntimeError(f"{entry}: this library's launches take "
-                                   "no tile rows")
-            args = args[:-3] + args[-2:]
         _build.check(lib, getattr(lib, entry)(*args), entry)
 
 
@@ -157,7 +152,7 @@ class Launch(NamedTuple):
     batch: int
     h: int  # the level the kernel reads (the lo level of a chain step)
     w: int
-    rule: int  # the launcher's own texels a thread (launch_opts.rule_nt)
+    rule: int  # the rule's texels a thread (launch_opts.rule_nt)
     call: Callable[[], object]  # the wrapper call again, on the same inputs
 
     @property
@@ -182,16 +177,20 @@ def record_launches():
         _RECORD = prior
 
 
-def _tiles(kernel: str, x: torch.Tensor, h: int, w: int, call,
-           h0: int | None = None, w0: int | None = None) -> int:
+def _tiles(kernel: str, x: torch.Tensor, h: int, w: int, crop, wrapper,
+           /, *args, **kwargs) -> int:
     """Texels a thread for this launch of ``kernel`` over ``x``'s batch of
-    (h, w) levels (``launch_opts.tile_rows``; 0 is the launcher's rule),
-    noted for ``record_launches`` with ``call``, which repeats it."""
+    (h, w) levels, its output cropped to ``crop`` = (h0, w0) or None
+    (``launch_opts.nt_for``).  While a ``record_launches`` block is open,
+    the launch is noted with a call of ``wrapper(*args, **kwargs)``, which
+    repeats it."""
     batch = math.prod(x.shape[:-2])
+    h0, w0 = crop or (None, None)
     if _RECORD is not None:
         _RECORD.append(Launch(kernel, batch, h, w,
-                              L.rule_nt(kernel, batch, h, w, h0, w0), call))
-    return L.tile_rows(kernel, batch, h, w)
+                              L.rule_nt(kernel, batch, h, w, h0, w0),
+                              functools.partial(wrapper, *args, **kwargs)))
+    return L.nt_for(kernel, batch, h, w, h0, w0)
 
 
 _LOCAL = threading.local()  # .tally: the open tally_launches block's dict
@@ -343,8 +342,8 @@ def render_ao_level(ds: torch.Tensor, level: int, full_width: int, camera,
                                        slopes_ds=slopes_ds)
     _check("ds", ds)
     h, w = ds.shape[-2:]
-    nt = _tiles("render_ao_level", ds, h, w, lambda: render_ao_level(
-        ds, level, full_width, camera, params))
+    nt = _tiles("render_ao_level", ds, h, w, None, render_ao_level, ds,
+                level, full_width, camera, params)
     if ds.device.type == "cpu":
         return render_ao_level_plain(ds, level, full_width, camera, params)
     _check_no_grad("render_ao_level", (ds,), params)
@@ -388,7 +387,6 @@ def _radius_coef(level: int, full_width: int, camera, params) -> float:
 # ---------------------------------------------------------------------------
 
 
-_SMS = 132  # H100 SXM
 DMA_MAX_ROWS = 160  # a segment's window in shared memory: (160 + 32) x 96
 
 
@@ -408,8 +406,9 @@ def dma_rows(row_tile: int, batch: int, h: int, w: int) -> int:
     Of the multiples of 8 up to that bound (and up to the first one that
     covers ``h``), the segment whose busiest SM renders the fewest rows:
     the grid's ``ceil(w / 64)`` strips x ``ceil(h / seg)`` segments x
-    ``batch`` blocks spread over the 132 SMs as the blocks finish, so the
-    busiest takes ``ceil(blocks / 132)`` of them, each ``seg + 2`` rows
+    ``batch`` blocks spread over the card's ``launch_opts.SMS`` SMs as
+    the blocks finish, so the busiest takes ``ceil(blocks / SMS)`` of
+    them, each ``seg + 2`` rows
     (the 2 for a block's start: its barriers and its first window's
     latency).  On a tie the larger segment.  A ``row_tile`` below 8 is
     the segment itself."""
@@ -420,7 +419,7 @@ def dma_rows(row_tile: int, batch: int, h: int, w: int) -> int:
     best = (None, 0)
     top = min(row_tile, DMA_MAX_ROWS, -(-h // 8) * 8)
     for seg in range(8, top + 1, 8):
-        rounds = -(-strips * -(-h // seg) * batch // _SMS)
+        rounds = -(-strips * -(-h // seg) * batch // L.SMS)
         cost = rounds * (seg + 2)
         if best[0] is None or cost <= best[0]:
             best = (cost, seg)
@@ -511,10 +510,9 @@ def render_ao_level_normals(ds: torch.Tensor, level: int, full_width: int,
         raise ValueError("render_ao_level_normals needs params.use_normals")
     _check("ds", ds)
     h, w = ds.shape[-2:]
-    nt = _tiles("render_ao_level_normals", ds, h, w,
-                lambda: render_ao_level_normals(
-                    ds, level, full_width, camera, params,
-                    normals_ds=normals_ds, slopes_ds=slopes_ds))
+    nt = _tiles("render_ao_level_normals", ds, h, w, None,
+                render_ao_level_normals, ds, level, full_width, camera,
+                params, normals_ds=normals_ds, slopes_ds=slopes_ds)
     if ds.device.type == "cpu":
         return render_ao_level_normals_plain(
             ds, level, full_width, camera, params, normals_ds=normals_ds,
@@ -592,10 +590,9 @@ def blur_upsample_step(lo_ao: torch.Tensor, lo_d: torch.Tensor,
             raise ValueError(f"{name}: spatial shape {tuple(x.shape[-2:])}, "
                              f"expected {hw}")
     h0, w0 = _crop(crop_hw, 2 * lh, 2 * lw)
-    nt = _tiles("blur_upsample_step", lo_d, lh, lw,
-                lambda: blur_upsample_step(
-                    lo_ao, lo_d, hi_d, params, full_width, lo_ao2=lo_ao2,
-                    hi_ao_blend=hi_ao_blend, crop_hw=crop_hw), h0, w0)
+    nt = _tiles("blur_upsample_step", lo_d, lh, lw, (h0, w0),
+                blur_upsample_step, lo_ao, lo_d, hi_d, params, full_width,
+                lo_ao2=lo_ao2, hi_ao_blend=hi_ao_blend, crop_hw=crop_hw)
     if lo_d.device.type == "cpu":
         return blur_upsample_step_plain(lo_ao, lo_d, hi_d, params, full_width,
                                         lo_ao2=lo_ao2, hi_ao_blend=hi_ao_blend,
@@ -687,10 +684,9 @@ def fused_render_upsample_step(ds: torch.Tensor, c1: torch.Tensor,
     ``csrc/fused.cu``."""
     dims = _check_fused(ds, c1, hi_d, crop_hw)
     lh, lw, h0, w0 = dims
-    nt = _tiles("fused_render_upsample_step", ds, lh, lw,
-                lambda: fused_render_upsample_step(
-                    ds, c1, hi_d, level, full_width, camera, params,
-                    crop_hw=crop_hw), h0, w0)
+    nt = _tiles("fused_render_upsample_step", ds, lh, lw, (h0, w0),
+                fused_render_upsample_step, ds, c1, hi_d, level, full_width,
+                camera, params, crop_hw=crop_hw)
     if ds.device.type == "cpu":
         return fused_render_upsample_step_plain(
             ds, c1, hi_d, level, full_width, camera, params, crop_hw=crop_hw)

@@ -3,11 +3,12 @@ on the card.
 
 Counterpart of ``tpuao/utils/autotune.py``.  There the lever is XLA's
 scoped-VMEM budget of a frame program; here it is the texels a thread of
-each launch of the tiled kernels (``launch_opts``), whose launchers pick
-it by a rule written by hand.  This module times every value each launch
-of a frame program can take, on that launch's own inputs, registers the
-fastest per launch, and keeps the table as JSON per device kind, so a
-fleet tunes once per (card, launch) and every process reuses it.
+each launch of the tiled kernels, which ``launch_opts`` picks by a rule
+written by hand where its table holds nothing.  This module times every
+value each launch of a frame program can take, on that launch's own
+inputs, registers the fastest per launch, and keeps the table as JSON per
+device kind, so a fleet tunes once per (card, launch) and every process
+reuses it.
 
     from tpuao_torch.utils import autotune
     res = autotune.tune_frame((1440, 2560))   # sweeps on the card

@@ -7,11 +7,11 @@ per frame-size class with a table of per-shape overrides that
 tile's rows, ``nt``) of each launch of the three tiled kernels that the
 frame programs run: the depth-only and normals render (``csrc/render.cu``),
 the upsample step (``csrc/upsample.cu``) and the fused step
-(``csrc/fused.cu``).  Each launcher picks ``nt`` by a rule of its own
-(``rule_nt``, written by hand from the card's 132 SMs) unless its ``nt``
-argument forces an instance; the wrappers (``ops/kernels.py``) pass
-``tile_rows(...)``, which is 0 -- the rule -- unless the table holds a
-value for that exact launch.
+(``csrc/fused.cu``).  This module decides it for every launch:
+``nt_for`` gives the table's value for the launch if it holds one, else
+the rule (``rule_nt``, written by hand from the card's ``SMS``), and the
+wrappers (``ops/kernels.py``) pass that instance to the launchers, which
+take it as given and refuse a value they have no instance for.
 
 The key is the launch, not the frame: ``(kernel, batch, h, w)`` with the
 kernel named as its wrapper is and (h, w) the level the kernel reads (the
@@ -24,7 +24,8 @@ contract): only the time.
     import tpuao_torch.utils.launch_opts as L
     L.set_tuned_tiles("fused_render_upsample_step", 1, 544, 960, 3)
     L.tile_rows("fused_render_upsample_step", 1, 544, 960)   # 3
-    L.tile_rows("fused_render_upsample_step", 4, 544, 960)   # 0: the rule
+    L.tile_rows("fused_render_upsample_step", 4, 544, 960)   # 0: no entry
+    L.nt_for("fused_render_upsample_step", 4, 544, 960)      # 3: the rule
 
 ``utils/autotune.tune_frame`` sweeps the values on the card and fills the
 table; ``save_tuned`` / ``load_tuned`` keep it per device kind.
@@ -33,7 +34,8 @@ table; ``save_tuned`` / ``load_tuned`` keep it per device kind.
 from __future__ import annotations
 
 # The instances each launcher has (the template arguments its switch
-# reaches): a value outside these is refused here and by the launcher.
+# reaches): a value outside these, 0 included, is refused here and by the
+# launcher.
 VALID_NT: dict[str, tuple[int, ...]] = {
     "render_ao_level": (4, 2, 1),
     "render_ao_level_normals": (1,),  # render.cu's static_assert
@@ -41,11 +43,11 @@ VALID_NT: dict[str, tuple[int, ...]] = {
     "fused_render_upsample_step": (3, 2, 1),
 }
 
-SMS = 132  # H100 SXM: the rules' "every SM gets a block" (csrc/ bakes it in)
+SMS = 132  # H100 SXM: the package's one SM count (the rules' waves)
 
 # Tuned per-launch values: (kernel, batch, h, w) -> nt.  Filled by
 # utils.autotune (a sweep on the card beats the hand-written rule for a
-# launch nobody timed by hand); consulted by tile_rows.
+# launch nobody timed by hand); consulted by nt_for and tile_rows.
 _TUNED: dict[tuple[str, int, int, int], int] = {}
 _GEN = 0  # bumped by every change of _TUNED: a graph of a frame reads it
 
@@ -99,9 +101,17 @@ def restore_tuned_tiles(prior: dict) -> None:
 
 
 def tile_rows(kernel: str, batch: int, h: int, w: int) -> int:
-    """Texels a thread for this launch: the tuned value, or 0, which asks
-    the launcher for its own rule (``rule_nt``)."""
+    """The table's texels a thread for this launch, or 0 where it holds
+    none."""
     return _TUNED.get((kernel, int(batch), int(h), int(w)), 0)
+
+
+def nt_for(kernel: str, batch: int, h: int, w: int, h0: int | None = None,
+           w0: int | None = None) -> int:
+    """Texels a thread of this launch, the instance its launcher runs: the
+    table's value for ``(kernel, batch, h, w)``, else ``rule_nt``."""
+    return tile_rows(kernel, batch, h, w) or rule_nt(kernel, batch, h, w,
+                                                     h0, w0)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -110,17 +120,17 @@ def _cdiv(a: int, b: int) -> int:
 
 def rule_nt(kernel: str, batch: int, h: int, w: int, h0: int | None = None,
             w0: int | None = None) -> int:
-    """The texels a thread that the launcher picks when ``tile_rows`` is 0
-    (the C rules ``render_rule_nt`` in ``csrc/render.cu`` and ``chain_nt``
-    in ``csrc/chain_step.cuh``, which the card holds this equal to):
+    """The texels a thread of a launch the table holds nothing for:
 
     * the depth-only render: the most of 4, 2, 1 whose grid of 64 x 8*nt
-      blocks still gives each of the 132 SMs one;
-    * the normals render: 1;
+      blocks still gives each of the ``SMS`` SMs one (fewer halo rows
+      staged a texel);
+    * the normals render: 1, which measured faster than 2 or 4;
     * a chain step from (h, w) to the (h0, w0) crop (default the whole
       2h x 2w): 3 where blocks of (8*nt - 3) x 61 lo texels make two full
       waves of three blocks an SM, else 2 where every SM gets a block,
-      else 1.
+      else 1 (at one wave and a bit, the 1080p fused step 1->0, 3
+      measured slower than 2: the last wave runs almost empty).
     """
     _key(kernel, batch, h, w)
     if kernel == "render_ao_level_normals":
