@@ -1048,11 +1048,23 @@ def test_trace_launch_spans_equal_the_launch_counts(dev, case, eager_frames):
 # ---------------------------------------------------------------------------
 
 
-def graph_against_eager(call, launches=None):
+def graph_sides(replays, inputs=True, output=True) -> dict:
+    """``frame_graph.graph_counts``'s sides of ``replays`` replays that
+    each bound (else copied) the inputs and bound (else cloned) the
+    output."""
+    return {"bound": replays * (inputs and output),
+            "inputs_bound": replays * inputs,
+            "inputs_copied": replays * (not inputs),
+            "output_bound": replays * output,
+            "output_cloned": replays * (not output)}
+
+
+def graph_against_eager(call, launches=None, sides=(True, True)):
     """``call()`` three times on an empty cache: eager (first sight),
     captured and replayed, then replayed; both replays bit-equal to the
-    eager output, each call's launch counts ``launches`` where given.
-    Returns the eager output."""
+    eager output, each call's launch counts ``launches`` where given, and
+    the replays bound the sides ``sides`` (inputs, output) to the call's
+    buffers.  Returns the eager output."""
     from tpuao_torch.models import frame_graph as G
 
     G._clear()
@@ -1064,7 +1076,7 @@ def graph_against_eager(call, launches=None):
             assert K.launch_counts() == launches
     torch.cuda.synchronize()
     assert G.graph_counts() == {
-        "captures": 1, "replays": 2,
+        "captures": 1, "replays": 2, **graph_sides(2, *sides),
         "eager": {**dict.fromkeys(G.REASONS, 0), "first_sight": 1}}
     for got in outs[1:]:
         assert got.dtype == outs[0].dtype and torch.equal(got, outs[0])
@@ -1183,7 +1195,9 @@ def test_graph_replay_adds_the_captured_launch_counts(dev, eager_frames):
                   blur_upsample_step=4)),
             (lambda: render_views_sharded(z, CAM, preset("HIGH")),
              HIGH_LAUNCHES)):
-        graph_against_eager(call, counts(**want))
+        # "pallas" reads the raw normals with PyTorch ops: copied in
+        graph_against_eager(call, counts(**want),
+                            (want is HIGH_LAUNCHES, True))
         K.reset_launch_counts()
         census = census_by_wrapper(launch_census(call, calls=5))
         assert K.launch_counts() == counts(**{k: 6 * v
@@ -1236,3 +1250,154 @@ def test_graph_capture_leaves_another_threads_launches_counted(
     assert K.launch_counts() == {
         k: 3 * HIGH_LAUNCHES.get(k, 0) + len(done) * n
         for k, n in per_other.items()}
+
+
+# ---------------------------------------------------------------------------
+# a replay on the caller's own buffers (frame_graph's binding,
+# csrc/graph_bind.cu): the prologue reads the call's depth and normals in
+# place and the last chain step writes the call's fresh output
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["high_1080p", "high_1080p_x8_slice",
+                                  "ultra_4k_channel_last",
+                                  "ultra_4k_channel_first"])
+def test_graph_binds_the_callers_buffers(dev, case, eager_frames):
+    """The main paths' replays copy nothing in and clone nothing out, and
+    stay bit-equal to the eager path: 1080p HIGH alone and as 8 views
+    sliced from a larger pool (as a capture rig passes them), 4K ULTRA
+    with channel-last and channel-first normals."""
+    if case.startswith("high"):
+        pool = torch.as_tensor(np.stack([
+            F.spheres_on_plane(1080, 1920, CAM, seed=s) for s in range(12)]),
+            dtype=torch.float32, device=dev)
+        z = pool[2:10] if case.endswith("slice") else pool[3]
+        graph_against_eager(lambda: render_frame(z, CAM, preset("HIGH")),
+                            counts(**HIGH_LAUNCHES))
+        return
+    z, n = normals_scene(dev, 2160, 3840, seed=5)
+    if case.endswith("first"):
+        n = n.permute(2, 0, 1).contiguous()
+    graph_against_eager(
+        lambda: render_frame(z, CAM, preset("ULTRA"), normals=n),
+        counts(prepare_levels=1, render_ao_level_normals=4,
+               blur_upsample_step=4))
+
+
+def test_graph_a_misaligned_view_has_a_graph_of_its_own(dev, eager_frames):
+    """A depth 4 bytes into its buffer takes no 16-byte loads: it gets a
+    key and a graph of its own, bound to it, bit-equal; the aligned
+    graph's binding refuses it."""
+    from tpuao_torch.models import frame_graph as G
+
+    h, w = 540, 960
+    base = torch.as_tensor(F.spheres_on_plane(h, w, CAM, seed=13),
+                           dtype=torch.float32, device=dev)
+    buf = torch.empty(h * w + 4, device=dev)
+    buf[1:1 + h * w] = base.flatten()
+    odd = buf[1:1 + h * w].view(h, w)
+    assert odd.data_ptr() % 16 == 4
+    want = render_frame(base, CAM, debug_outputs=True)[0]
+    for z in (base, base, odd, odd, odd):
+        assert torch.equal(render_frame(z, CAM), want)
+    torch.cuda.synchronize()
+    counts_ = G.graph_counts()
+    assert counts_["captures"] == 2 and counts_["replays"] == 3
+    assert counts_["bound"] == 3
+    assert len(G._entries) == 2
+    aligned = G._entries[G._key(base, None, CAM, AOParams(), "auto")]
+    out = torch.empty_like(base)
+    assert aligned.bind(odd, None, out) == 1  # cudaErrorInvalidValue
+    assert aligned.bind(base, None, out) == 0
+
+
+def test_graph_outputs_held_across_calls_stay_their_own(dev, eager_frames):
+    """Two outputs of one key, held while the next call replays on a
+    different depth: each is its own frame, neither overwritten."""
+    from tpuao_torch.models import frame_graph as G
+
+    zs = [torch.as_tensor(F.spheres_on_plane(1080, 1920, CAM, seed=s),
+                          dtype=torch.float32, device=dev) for s in (14, 15)]
+    want = [render_frame(z, CAM, debug_outputs=True)[0] for z in zs]
+    render_frame(zs[0], CAM)
+    held = [render_frame(z, CAM) for z in zs * 2]  # captured, replays
+    torch.cuda.synchronize()
+    for i, out in enumerate(held):
+        assert torch.equal(out, want[i % 2])
+    assert len({o.data_ptr() for o in held}) == 4
+    assert G.graph_counts()["bound"] == G.graph_counts()["replays"] == 4
+
+
+def test_graph_the_callers_depth_freed_right_after_the_call(dev,
+                                                            eager_frames):
+    """A depth freed as the call returns, its memory at once taken and
+    overwritten by the caller on the same stream: the replay read it
+    before, so every output is its frame's."""
+    from tpuao_torch.models import frame_graph as G
+
+    base = torch.as_tensor(F.spheres_on_plane(540, 960, CAM, seed=16),
+                           dtype=torch.float32, device=dev)
+    shifts = [0, 0, 37, 101, 203, 307]
+    want = [render_frame(torch.roll(base, k, dims=-1), CAM,
+                         debug_outputs=True)[0] for k in shifts]
+    outs = []
+    for k in shifts:
+        z = torch.roll(base, k, dims=-1)
+        outs.append(render_frame(z, CAM))
+        del z
+        junk = torch.empty_like(base)  # the freed block, on this stream
+        junk.fill_(float("nan"))
+        del junk
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
+    assert G.graph_counts()["bound"] == len(shifts) - 1
+
+
+def test_graph_two_threads_bind_their_own_buffers(dev, eager_frames):
+    """Two threads, each on a stream of its own, replay one key with
+    depths of their own, a fresh one each call, without a synchronise:
+    every output is its call's frame and every replay bound."""
+    import threading
+
+    from tpuao_torch.models import frame_graph as G
+
+    base = torch.as_tensor(F.spheres_on_plane(540, 960, CAM, seed=17),
+                           dtype=torch.float32, device=dev)
+    shifts = [[11 * j for j in range(8)], [13 * j + 5 for j in range(8)]]
+    want = [[render_frame(torch.roll(base, k, dims=-1), CAM,
+                          debug_outputs=True)[0] for k in ks]
+            for ks in shifts]
+    render_frame(base, CAM)
+    render_frame(base, CAM)  # captured
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            start.wait(timeout=60)
+            with torch.cuda.stream(stream):
+                for _ in range(3):
+                    for k in shifts[i]:
+                        outs[i].append(render_frame(
+                            torch.roll(base, k, dims=-1), CAM))
+            stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(outs[i]) == 24
+        for j, out in enumerate(outs[i]):
+            assert torch.equal(out, want[i][j % 8])
+    counts_ = G.graph_counts()
+    assert counts_["captures"] == 1 and counts_["replays"] == 49
+    assert counts_["bound"] == 49

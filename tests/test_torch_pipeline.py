@@ -538,7 +538,7 @@ def test_frame_graph_eager_calls_by_reason(graphs, monkeypatch, reason):
         assert got.requires_grad
     assert torch.equal(got.detach(), want)
     assert graphs.graph_counts() == {
-        "captures": 0, "replays": 0,
+        "captures": 0, "replays": 0, **dict.fromkeys(graphs.SIDES, 0),
         "eager": {**dict.fromkeys(graphs.REASONS, 0), reason: 1}}
 
 
@@ -560,7 +560,7 @@ def test_frame_graph_bypassed_by_the_paths_that_call_the_pipeline(
     render_frame_spatial(z[0], cam, par, mesh=["cpu"] * 2)
     ao_loss(par, z[0], torch.ones(256, 96), cam)
     assert graphs.graph_counts() == {
-        "captures": 0, "replays": 0,
+        "captures": 0, "replays": 0, **dict.fromkeys(graphs.SIDES, 0),
         "eager": dict.fromkeys(graphs.REASONS, 0)}
 
 
@@ -570,7 +570,8 @@ def _stub_capture(graphs, monkeypatch, sizes, bound=100):
     import types
 
     monkeypatch.setattr(graphs, "_bound", lambda device: bound)
-    monkeypatch.setattr(graphs, "_capture", lambda depth, normals, program:
+    monkeypatch.setattr(graphs, "_capture",
+                        lambda depth, normals, program, sides:
                         types.SimpleNamespace(nbytes=sizes[program]))
 
     def call(key):
@@ -684,7 +685,7 @@ def test_frame_graph_a_failed_capture_runs_eager_from_then_on(
         graphs, monkeypatch):
     tries = []
 
-    def fail(depth, normals, program):
+    def fail(depth, normals, program, sides):
         tries.append(program)
         raise RuntimeError("operation not permitted when stream is "
                            "capturing")
@@ -697,6 +698,172 @@ def test_frame_graph_a_failed_capture_runs_eager_from_then_on(
                                                             "uncapturable")
     assert graphs._entry_for("k", depth, None, "k") == (None, "uncapturable")
     assert tries == ["k"] and graphs.graph_counts()["captures"] == 0
+
+
+def test_frame_graph_key_separates_the_16_byte_alignment_classes(graphs):
+    """The prologue picks its 16-byte loads from its inputs' alignment: a
+    view 1 to 3 floats into a buffer gets a key of its own, one 4 floats
+    in shares the aligned key."""
+    cam, par = CameraParams(depth_mode="linear"), AOParams()
+    plane = 64 * 96
+    buf, nbuf = torch.zeros(plane + 4), torch.zeros(3 * plane + 4)
+    keys = [graphs._key(buf[i:i + plane].view(64, 96), None, cam, par,
+                        "auto") for i in range(5)]
+    assert keys[0] == keys[4] and keys[1] == keys[2] == keys[3]
+    assert keys[0] != keys[1]
+    z = buf[:plane].view(64, 96)
+    nkeys = [graphs._key(z, nbuf[i:i + 3 * plane].view(64, 96, 3), cam, par,
+                         "auto") for i in (0, 1, 4)]
+    assert nkeys[0] == nkeys[2] != nkeys[1]
+
+
+class _FakeGraph:
+    """A frame graph as the CPU tests see one: each replay runs the
+    program again, on the inputs the last bind pointed it at (else the
+    ones it was captured with), into the output the last bind named (else
+    the captured one) -- what the card's graph reads and writes."""
+
+    def __init__(self, program, depth, normals, ao):
+        self.program = program
+        self.inputs, self.out = (depth, normals), ao
+
+    def replay(self):
+        self.out.copy_(self.program(*self.inputs))
+
+
+@pytest.fixture
+def card_graphs(graphs, monkeypatch):
+    """``frame_graph`` on CPU tensors as if on the card: the capture runs
+    the program once and gives a ``_FakeGraph``; ``_find`` finds the
+    prologue where it was asked to bind the inputs and the last chain
+    step where it was asked to bind the output, less what ``fake.lose``
+    takes off, and its ``bind`` returns ``fake.err``."""
+    import types
+
+    fake = types.SimpleNamespace(lose=0, err=0, records=[])
+
+    def record(depth, normals, program, in_place):
+        d, n = depth, normals
+        if not in_place:
+            d = torch.empty_like(depth)
+            n = None if normals is None else torch.empty_like(normals)
+        fake.records.append(in_place)
+        ao = program(d, n)
+        return _FakeGraph(program, d, n, ao), d, n, ao, {}, 0
+
+    def find(graph, depth, normals, ao):
+        found = ((depth is not None) | 2 * (ao is not None)) & ~fake.lose
+
+        def bind(d, n, out):
+            if found & 1:
+                graph.inputs = (d, n)
+            if found & 2:
+                graph.out = out
+            return fake.err
+
+        return found, bind if found else None
+
+    stream = types.SimpleNamespace(wait_event=lambda event: None)
+    monkeypatch.setattr(graphs, "_on_card", lambda depth: True)
+    monkeypatch.setattr(graphs, "_record", record)
+    monkeypatch.setattr(graphs, "_find", find)
+    monkeypatch.setattr(graphs, "_bound", lambda device: 10 ** 12)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Event", lambda: types.SimpleNamespace(
+        record=lambda stream: None))
+    return fake
+
+
+# case: what differs from a float32 depth-only frame under "auto" with
+# blur; the sides the graph binds, (inputs, output)
+BIND_CASES = {
+    "float32": (True, True),
+    "normals": (True, True),
+    "float16": (False, True),  # prepare_levels casts it first
+    "column_strided": (False, True),  # prepare_levels copies it first
+    "pallas_normals": (False, True),  # its raw-normals pyramid reads them
+    "no_blur": (True, False),  # a nearest 2x by PyTorch ops
+    "prologue_copies": (False, True),  # the capture's prologue reads a copy
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIND_CASES))
+def test_frame_graph_replays_bind_what_the_graph_lets_bind(card_graphs,
+                                                           graphs, case):
+    """Each replay reads the call's depth and normals and writes a fresh
+    output, either in place or through the static buffers, as the call
+    and the captured nodes allow; every output is its call's frame, and
+    each side of each replay is counted once."""
+    from tpuao_torch.models.pipeline import ao_pipeline
+    from tpuao_torch.utils import fixtures as F
+
+    inputs, output = BIND_CASES[case]
+    card_graphs.lose = 1 if case == "prologue_copies" else 0
+    impl = "pallas" if case == "pallas_normals" else "auto"
+    par = AOParams(hierarchy_depth=2, enable_blur=case != "no_blur")
+    cam, frames = CameraParams(depth_mode="linear"), []
+    for seed in (3, 4):
+        z, n = (torch.as_tensor(np.stack(x), dtype=torch.float32)
+                for x in zip(*(
+                    F.spheres_on_plane(64, 96, cam, seed=seed + i,
+                                       with_normals=True, backend="numpy")
+                    for i in range(2))))
+        n = n if "normals" in case else None
+        if case == "float16":
+            z = z.half()
+        if case == "column_strided":
+            z = z.transpose(-1, -2).contiguous().transpose(-1, -2)
+        frames.append((z, n))
+    if n is not None:
+        par = par.replace(use_normals=True)
+    wants = [ao_pipeline(z, cam, par, n, impl=impl)[0] for z, n in frames]
+    outs = [render_frame(z, cam, par, normals=n, impl=impl)
+            for z, n in (frames * 3)[:5]]
+    for i, got in enumerate(outs):
+        assert torch.equal(got, wants[i % 2])
+    assert len({o.data_ptr() for o in outs}) == 5  # fresh, none aliased
+    entry = next(iter(graphs._entries.values()))
+    assert entry.binds == (inputs, output)
+    assert (entry.depth is None) == inputs
+    assert card_graphs.records == ([True, False] if case == "prologue_copies"
+                                   else [inputs])
+    counts = graphs.graph_counts()
+    replays = 4
+    assert counts["captures"] == 1 and counts["replays"] == replays
+    assert counts["eager"] == {**dict.fromkeys(graphs.REASONS, 0),
+                               "first_sight": 1}
+    assert counts["inputs_bound"] == replays * inputs
+    assert counts["inputs_copied"] == replays * (not inputs)
+    assert counts["output_bound"] == replays * output
+    assert counts["output_cloned"] == replays * (not output)
+    assert counts["bound"] == replays * (inputs and output)
+    assert counts["inputs_bound"] + counts["inputs_copied"] == replays
+    assert counts["output_bound"] + counts["output_cloned"] == replays
+
+
+def test_frame_graph_a_bind_error_runs_eager_from_then_on(card_graphs,
+                                                          graphs):
+    """A graph that cannot be bound to a call's buffers warns once, and
+    its key runs the eager path from then on, bit-equal."""
+    import warnings
+
+    card_graphs.err = 700
+    z, cam, _, _ = scene(64, 96, batch=2)
+    z = torch.as_tensor(z)
+    want = render_frame(z, cam)  # first sight
+    with pytest.warns(RuntimeWarning, match="binding the graph"):
+        assert torch.equal(render_frame(z, cam), want)  # captured, eager
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(render_frame(z, cam), want)
+    assert not graphs._entries
+    assert graphs.graph_counts() == {
+        "captures": 1, "replays": 0, **dict.fromkeys(graphs.SIDES, 0),
+        "eager": {**dict.fromkeys(graphs.REASONS, 0), "first_sight": 1,
+                  "uncapturable": 2}}
 
 
 def test_launch_tally_takes_only_its_own_threads_launches():

@@ -64,6 +64,12 @@ struct ChainArgs {
   float falloff, strength;  // render tunables (fused steps)
 };
 
+// The parameters of `func` where it is an instance of a chain-step kernel
+// that takes the step's ChainArgs first (upsample.cu: 2, fused.cu: 4),
+// else 0.  graph_bind.cu finds a frame graph's output node by them.
+int upsample_kernel_params(const void* func);
+int fused_kernel_params(const void* func);
+
 // A block's shared tiles for OH x OW lo texels: the extended tile's AO
 // (after pre-min) and depth, and the filtered field on the (OH+1) x (OW+1)
 // positions the 2x taps read.

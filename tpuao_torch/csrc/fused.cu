@@ -159,6 +159,17 @@ cudaError_t launch_fused(const ChainArgs& a, const PairTable& pt, int batch,
   }
 }
 
+template <int NP>
+bool is_fused_np(const void* f) {
+  return f == reinterpret_cast<const void*>(fused_step_kernel<NP, 1>) ||
+         f == reinterpret_cast<const void*>(fused_step_kernel<NP, 2>) ||
+         f == reinterpret_cast<const void*>(fused_step_kernel<NP, 3>);
+}
+
+int fused_kernel_params(const void* func) {
+  return is_fused_np<34>(func) || is_fused_np<10>(func) ? 4 : 0;
+}
+
 }  // namespace tpuao
 
 // ds, c1: (batch, lh, lw); hi_d: (batch, 2lh, 2lw); out: (batch, h0, w0),

@@ -49,33 +49,12 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "prepare.cuh"
 
 namespace tpuao {
 
-constexpr int kPrepareMaxLevels = 6;
 constexpr int kPrepareCols = 32;  // blockDim.x: runs of 4 texels
 constexpr int kPrepareRows = 8;   // blockDim.y: linz rows
-
-// Output planes: z[0] is linz, z[l] depth level l; gx[l], gy[l] the slope
-// planes of level l >= 1 (null without normals).
-struct PrepareOut {
-  float* z[kPrepareMaxLevels + 1];
-  float* gx[kPrepareMaxLevels + 1];
-  float* gy[kPrepareMaxLevels + 1];
-};
-
-struct PrepareArgs {
-  const float* depth;  // (batch, h0, w0), rows dense, strides below
-  const float* nrm;    // normals, element strides below, or null
-  long long db, dh;    // depth's batch and row strides
-  long long nb, nh, nw, nc;  // batch, row, column, channel strides
-  int h0, w0, hp, wp, levels;
-  int mode;   // 0: linear depth, 1: reversed-Z, 2: forward-Z
-  float zm;   // float32((far - near) / near)
-  float ts0;  // float32(2 tanH / wp)
-  int vec_depth;  // depth rows allow 16-byte loads
-  int vec_nrm;    // dense channel-last normals allowing 16-byte loads
-};
 
 // linearize_depth: 1 / (zm * t + 1), t = d (reversed-Z) or 1 - d
 // (forward-Z), each operation rounded as PyTorch's separate kernels round
@@ -155,6 +134,11 @@ prepare_levels_kernel(const __grid_constant__ PrepareArgs a,
       o.gy[l][at] = g0.y;
     }
   }
+}
+
+bool is_prepare_kernel(const void* func) {
+  return func == reinterpret_cast<const void*>(prepare_levels_kernel<true>) ||
+         func == reinterpret_cast<const void*>(prepare_levels_kernel<false>);
 }
 
 }  // namespace tpuao

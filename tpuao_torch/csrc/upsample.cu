@@ -29,6 +29,9 @@
 // Measured: PERF.md (chip_smoke.py phase 12); no spill at 36-40
 // registers.
 
+#include <algorithm>
+#include <iterator>
+
 #include "chain_step.cuh"
 
 namespace tpuao {
@@ -145,6 +148,24 @@ inline cudaError_t launch_chain_step(const ChainArgs& a, int batch, int nt,
   if (pre_min) return launch_upsample<true, false>(a, batch, nt, device, s);
   if (blend) return launch_upsample<false, true>(a, batch, nt, device, s);
   return launch_upsample<false, false>(a, batch, nt, device, s);
+}
+
+template <int NT>
+bool is_upsample_nt(const void* f) {
+  const void* const instances[] = {
+      reinterpret_cast<const void*>(upsample_kernel<NT, false, false>),
+      reinterpret_cast<const void*>(upsample_kernel<NT, true, false>),
+      reinterpret_cast<const void*>(upsample_kernel<NT, false, true>),
+      reinterpret_cast<const void*>(upsample_kernel<NT, true, true>)};
+  return std::find(std::begin(instances), std::end(instances), f) !=
+         std::end(instances);
+}
+
+int upsample_kernel_params(const void* func) {
+  return is_upsample_nt<1>(func) || is_upsample_nt<2>(func) ||
+                 is_upsample_nt<3>(func)
+             ? 2
+             : 0;
 }
 
 }  // namespace tpuao

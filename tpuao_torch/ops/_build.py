@@ -31,8 +31,9 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("render.cu", "upsample.cu", "fused.cu", "windowed.cu",
-           "render_dma.cu", "fused_zc.cu", "prepare.cu", "selftest.cu")
-HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh")
+           "render_dma.cu", "fused_zc.cu", "prepare.cu", "selftest.cu",
+           "graph_bind.cu")
+HEADERS = ("common.cuh", "chain_step.cuh", "tile.cuh", "prepare.cuh")
 # Each library binds its own symbols: two builds loaded in one process (an
 # older tree's kernels timed beside these) share the names of their
 # templates, and a static inside a template function (a launcher's record
@@ -46,9 +47,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 
 # Every launching entry point returns a cudaError_t; pointers, the host pair
-# table (of one level), the prologue's host array of output pointers and
-# the stream are c_void_p, sizes c_int, strides c_longlong, tunables
-# c_float (without argtypes ctypes would pass a Python float as a double).
+# table (of one level), the prologue's host array of output pointers, the
+# stream and a frame graph's handles and binding are c_void_p, sizes
+# c_int, strides and counts of floats c_longlong, tunables c_float (without
+# argtypes ctypes would pass a Python float as a double).
 SIGNATURES = {
     "tpuao_render_ao_level": (
         _P, _P, _I, _I, _I, _P, _I, _F, _F, _I, _I, _P),
@@ -69,6 +71,8 @@ SIGNATURES = {
         _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P, _L, _L, _L, _L, _F,
         _P, _I, _P),
     "tpuao_check_division": (_P, _I, _P),
+    "tpuao_graph_find": (_P, _P, _P, _P, _L, _P, _I),
+    "tpuao_graph_bind": (_P, _P, _P, _P, _P),
 }
 
 
