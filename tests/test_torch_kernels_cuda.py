@@ -1401,3 +1401,42 @@ def test_graph_two_threads_bind_their_own_buffers(dev, eager_frames):
     counts_ = G.graph_counts()
     assert counts_["captures"] == 1 and counts_["replays"] == 49
     assert counts_["bound"] == 49
+
+
+def test_sixteen_k_frame_on_eight_sections(dev):
+    """The 16K-class frame (8640 x 15360) on 8 sections through
+    ``engine.render_sections``, HIGH ``auto``, reversed-Z hardware depth:
+    the same bits with tracing on and off, within 1e-3 of the float64
+    golden, and 13,120 rows rendered to keep 8,640 (1408, 6 x 1728 and
+    1344 rows)."""
+    from tpuao_torch.golden import render_frame_golden
+    from tpuao_torch.models.pipeline import AmbientOcclusionEngine
+    from tpuao_torch.parallel import sections as SC
+    from tpuao_torch.utils import trace
+
+    cam = CameraParams(reversed_z=True, depth_mode="hardware")
+    z = torch.as_tensor(F.to_hardware_depth(F.spheres_on_plane(
+        8640, 15360, cam, seed=24), cam), dtype=torch.float32, device=dev)
+    eng = AmbientOcclusionEngine(cam, device=dev)
+    SC._clear()
+    off = eng.render_sections(z, 8)
+    trace.enable()
+    try:
+        on = eng.render_sections(z, 8)
+    finally:
+        trace.disable()
+        spans = trace.take()["spans"]
+    torch.cuda.synchronize()
+    assert torch.equal(on, off)
+    del on
+    assert [r.name for r in spans].count("ao_section") == 8
+    assert spans[0].name == "ao_entry.render_sections"
+    counts_ = SC.section_counts()
+    SC._clear()
+    assert counts_["sections"] == 16
+    assert counts_["rows_rendered"] == 2 * 13_120
+    assert counts_["rows_kept"] == 2 * 8_640
+    want = render_frame_golden(z, cam, AOParams(), device=dev)
+    err = float((off.double() - want).abs().max())
+    print(f"16K on 8 sections vs the float64 golden {err:.3e}")
+    assert err <= 1e-3

@@ -820,3 +820,92 @@ def test_engine_render_sections_matches_the_function():
         device="cpu").numpy())
     np.testing.assert_array_equal(got.numpy(), eng.render(z, normals=n)
                                   .numpy())
+
+
+# -- the sections layer's spans and counts, and a 16K-class plan's golden --
+
+from tpuao_torch.golden import render_frame_golden  # noqa: E402
+from tpuao_torch.utils import trace  # noqa: E402
+
+HW_CAM = CameraParams(reversed_z=True, depth_mode="hardware")
+
+
+def _hw_depth(shape, seed):
+    """Reversed-Z hardware depth of spheres on a plane, float32, (H, W)
+    or a batch of frames, each its own scene."""
+    *batch, h, w = shape
+    frames = [F.to_hardware_depth(F.spheres_on_plane(
+        h, w, HW_CAM, n_spheres=4, seed=seed + i), HW_CAM)
+        for i in range(math.prod(batch))]
+    return np.stack(frames).reshape(shape).astype(np.float32)
+
+
+@pytest.fixture
+def section_tally():
+    SC._clear()
+    yield SC
+    SC._clear()
+
+
+@pytest.mark.parametrize("form, shape, k", [
+    ("separate", (2, 704, 64), 2), ("separate", (1080, 64), 8),
+    ("fused", (704, 64), 2)])
+def test_sections_record_their_spans_and_rows(form, shape, k,
+                                              section_tally):
+    """One top-level ``ao_entry.render_sections`` of the call's frames;
+    under it one ``ao_section`` a rendered section, each holding its frame
+    program's spans and then one ``ao_section_keep``; ``section_counts()``
+    the plan's rows, times the frames.  1080 rows on 8 sections is the
+    clamped plan whose last two sections keep no row: six render.  The
+    output is the same bit for bit with tracing on and off."""
+    fn = {"separate": SC.render_frame_sections,
+          "fused": SC.render_frame_sections_fused}[form]
+    z = _hw_depth(shape, seed=30)
+    frames = math.prod(shape[:-2])
+    off = fn(z, HW_CAM, n_sections=k, device="cpu")
+    assert trace.take()["spans"] == []
+    trace.enable()
+    try:
+        on = fn(z, HW_CAM, n_sections=k, device="cpu")
+    finally:
+        trace.disable()
+        spans = trace.take()["spans"]
+    assert torch.equal(on, off)
+
+    h = shape[-2]
+    _, band, plan = SC.section_plan(h, k, SC.stencil_halo_rows(AOParams()))
+    rendered = [(a, min(b, h), min(band, h - a - o))
+                for a, b, o in plan if a + o < h]
+    assert len(rendered) == (6 if k == 8 else k)
+    assert [i for i, r in enumerate(spans) if r.parent == -1] == [0]
+    assert spans[0].name == "ao_entry.render_sections"
+    assert spans[0].frames == frames
+    sections = [i for i, r in enumerate(spans) if r.parent == 0]
+    assert [spans[i].name for i in sections] == ["ao_section"] * len(
+        rendered)
+    for i in sections:
+        kids = [r.name for r in spans if r.parent == i]
+        assert kids[-1] == "ao_section_keep" and "ao_prepare" in kids
+        assert kids.count("ao_section_keep") == 1
+    assert SC.section_counts() == {
+        "calls": 2, "frames": 2 * frames, "sections": 2 * len(rendered),
+        "rows_rendered": 2 * frames * sum(s - a for a, s, _ in rendered),
+        "rows_kept": 2 * frames * h}
+    section_tally._clear()
+    assert SC.section_counts() == dict.fromkeys(
+        ("calls", "frames", "sections", "rows_rendered", "rows_kept"), 0)
+
+
+def test_eight_sections_hold_to_the_golden(section_tally):
+    """A 4096-row frame on 8 sections (band 512, halo 320) within 1e-3 of
+    the float64 golden, with 1.47x the frame's rows rendered: 832, 6 x
+    1152 and 832."""
+    z = _hw_depth((4096, 64), seed=40)
+    got = AmbientOcclusionEngine(HW_CAM, device="cpu").render_sections(z, 8)
+    want = render_frame_golden(z, HW_CAM, AOParams(), device="cpu")
+    err = float((got.double() - want).abs().max())
+    print(f"4096 x 64 on 8 sections vs the float64 golden {err:.3e}")
+    assert err <= 1e-3
+    counts = SC.section_counts()
+    assert counts["sections"] == 8 and counts["rows_kept"] == 4096
+    assert counts["rows_rendered"] == 832 * 2 + 1152 * 6

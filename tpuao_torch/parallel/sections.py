@@ -36,18 +36,54 @@ frame program's pad then replace its parity-4 apron (ROADMAP queue 3).
 
 ``debug_outputs`` is not offered, as in the JAX package: the debug pyramid
 is a whole-frame buffer, which this mode exists to avoid.
+
+The sections record spans when the port's tracing is on (``utils/trace``):
+``ao_entry.render_sections`` around the call, counting its frames, one
+``ao_section`` around each rendered section's frame program and, inside
+it, ``ao_section_keep`` around the composite, quantise and copy of its
+kept rows into the output.  ``section_counts()`` counts, always, the
+calls, frames and rendered sections, and the rows rendered and kept.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-from tpuao_torch.models.pipeline import (_as_tensor, _normals_on, _quantize,
-                                         ao_pipeline)
+from tpuao_torch.models.pipeline import (_as_tensor, _frames, _normals_on,
+                                         _quantize, ao_pipeline)
 from tpuao_torch.ops import composite as C
 from tpuao_torch.ops.render import normals_channel_last
 from tpuao_torch.params import AOParams, CameraParams
 from tpuao_torch.parallel.spatial import stencil_halo_rows
+from tpuao_torch.utils import trace
+
+_tally = threading.Lock()  # guards the counts
+_counts = dict.fromkeys(("calls", "frames", "sections", "rows_rendered",
+                         "rows_kept"), 0)
+
+
+def section_counts() -> dict:
+    """``{"calls", "frames", "sections", "rows_rendered", "rows_kept"}``
+    since the last ``_clear()``: the calls and their frames, the sections
+    rendered (a section with no row to keep is not), and the rows those
+    sections ran the frame program on (``stop - start``, before the
+    program's pad to 64) and kept, each times the call's frames."""
+    with _tally:
+        return dict(_counts)
+
+
+def _clear() -> None:
+    """Zero the counts (tests)."""
+    with _tally:
+        _counts.update(dict.fromkeys(_counts, 0))
+
+
+def _count(**by) -> None:
+    with _tally:
+        for k, v in by.items():
+            _counts[k] += v
 
 
 def section_plan(h: int, n_sections: int, halo: int):
@@ -87,27 +123,38 @@ def _render_plan(depth, camera, params, plan, band: int, impl: str,
     h0 = depth.shape[-2]
     out_rows = color_rows if color is not None else -2
     out = None
+    sections = rendered = kept = 0
     for a, b, off in plan:
         start = a + off
         keep = min(band, h0 - start)
         if keep <= 0:
             continue
         stop = min(b, h0)
-        # [0] drops the debug dict at once: it holds the section's pyramid
-        ao = ao_pipeline(depth[..., a:stop, :], camera, params,
-                         None if normals is None else normals[..., a:stop,
-                                                              :, :],
-                         impl=impl)[0]
-        piece = ao[..., off:off + keep, :]
-        if color is not None:
-            piece = C.composite(color.narrow(color_rows, start, keep), piece)
-        piece = _quantize(piece, out_dtype)
-        if out is None:
-            shape = list(piece.shape)
-            shape[out_rows] = h0
-            out = piece.new_empty(shape)
-        out.narrow(out_rows, start, keep).copy_(piece)
-        del ao, piece  # free the section before the next one renders
+        with trace.span("ao_section") if trace.ON else trace.OFF:
+            # [0] drops the debug dict at once: it holds the section's
+            # pyramid
+            ao = ao_pipeline(depth[..., a:stop, :], camera, params,
+                             None if normals is None
+                             else normals[..., a:stop, :, :],
+                             impl=impl)[0]
+            with trace.span("ao_section_keep") if trace.ON else trace.OFF:
+                piece = ao[..., off:off + keep, :]
+                if color is not None:
+                    piece = C.composite(
+                        color.narrow(color_rows, start, keep), piece)
+                piece = _quantize(piece, out_dtype)
+                if out is None:
+                    shape = list(piece.shape)
+                    shape[out_rows] = h0
+                    out = piece.new_empty(shape)
+                out.narrow(out_rows, start, keep).copy_(piece)
+            del ao, piece  # free the section before the next one renders
+        sections += 1
+        rendered += stop - a
+        kept += keep
+    n = _frames(depth)
+    _count(calls=1, frames=n, sections=sections, rows_rendered=rendered * n,
+           rows_kept=kept * n)
     return out
 
 
@@ -126,20 +173,23 @@ def render_frame_sections(depth, camera=None, params=None,
     hierarchy depth 4; a section keeps ``aligned_h / n_sections`` rows
     (``section_plan``).  Each section launches the frame's kernels once.
     """
-    camera = camera or CameraParams()
-    params = params or AOParams()
-    if halo_rows is None:
-        halo_rows = stencil_halo_rows(params)
-    depth = _as_tensor(depth, device)
-    _, band, plan = section_plan(depth.shape[-2], n_sections, halo_rows)
-    if normals is not None:
-        normals = normals_channel_last(_normals_on(normals, depth.device))
-    color_rows = -2
-    if color is not None:
-        color = _as_tensor(color, depth.device)
-        color_rows = -3 if color.ndim == depth.ndim + 1 else -2
-    return _render_plan(depth, camera, params, plan, band, impl, normals,
-                        color, color_rows, out_dtype)
+    with (trace.span("ao_entry.render_sections", frames=_frames(depth))
+          if trace.ON else trace.OFF):
+        camera = camera or CameraParams()
+        params = params or AOParams()
+        if halo_rows is None:
+            halo_rows = stencil_halo_rows(params)
+        depth = _as_tensor(depth, device)
+        _, band, plan = section_plan(depth.shape[-2], n_sections, halo_rows)
+        if normals is not None:
+            normals = normals_channel_last(_normals_on(normals,
+                                                       depth.device))
+        color_rows = -2
+        if color is not None:
+            color = _as_tensor(color, depth.device)
+            color_rows = -3 if color.ndim == depth.ndim + 1 else -2
+        return _render_plan(depth, camera, params, plan, band, impl,
+                            normals, color, color_rows, out_dtype)
 
 
 def sections_fused_fn(k: int, ha: int, band: int, halo: int, impl: str):
@@ -177,14 +227,16 @@ def render_frame_sections_fused(depth, camera=None, params=None,
     ``sections_fused_fn``: the same decomposition and result as
     ``render_frame_sections``, without normals, colour or a batch, and
     refusing a clamped plan."""
-    camera = camera or CameraParams()
-    params = params or AOParams()
-    if halo_rows is None:
-        halo_rows = stencil_halo_rows(params)
-    depth = _as_tensor(depth, device)
-    if depth.ndim != 2:
-        raise ValueError(f"fused sections take a single (H, W) frame, got "
-                         f"{tuple(depth.shape)}")
-    ha, band, _ = section_plan(depth.shape[-2], n_sections, halo_rows)
-    return sections_fused_fn(int(n_sections), ha, band, halo_rows,
-                             impl)(depth, camera, params)
+    with (trace.span("ao_entry.render_sections", frames=_frames(depth))
+          if trace.ON else trace.OFF):
+        camera = camera or CameraParams()
+        params = params or AOParams()
+        if halo_rows is None:
+            halo_rows = stencil_halo_rows(params)
+        depth = _as_tensor(depth, device)
+        if depth.ndim != 2:
+            raise ValueError(f"fused sections take a single (H, W) frame, "
+                             f"got {tuple(depth.shape)}")
+        ha, band, _ = section_plan(depth.shape[-2], n_sections, halo_rows)
+        return sections_fused_fn(int(n_sections), ha, band, halo_rows,
+                                 impl)(depth, camera, params)

@@ -15,9 +15,11 @@ and clears them.
 The spans of the frame path (names as the JAX package's named scopes,
 where it has the stage):
 
-* ``ao_entry.render_frame``, ``ao_entry.render_views``: the entry points
+* ``ao_entry.render_frame``, ``ao_entry.render_views``,
+  ``ao_entry.render_sections``: the entry points
   (``models/pipeline.render_frame``, ``parallel/sharding.
-  render_views_sharded``), counting the call's ``frames``;
+  render_views_sharded``, ``parallel/sections.render_frame_sections`` and
+  its fused form), counting the call's ``frames``;
 * ``ao_prepare`` (the prologue, ``ops/kernels.prepare_levels``: pad,
   linearise, pyramid and the slope levels, one launch on the card) and
   ``ao_slopes`` (the rest of the normals branch: the raw-normals pyramid
@@ -34,7 +36,12 @@ where it has the stage):
   (``parallel/sharding.render_views_sharded`` over a mesh of more than
   one device): one device's shard copies (one a device a call, before
   that device's ``ao_entry.render_frame``), and the gather of the shards'
-  results on the mesh's first device with the crop of the padding.
+  results on the mesh's first device with the crop of the padding;
+* ``ao_section`` and ``ao_section_keep`` under ``ao_entry.render_sections``
+  (``parallel/sections``): one section's frame program (which holds the
+  prologue and stage spans above; the sections call ``ao_pipeline``
+  directly, never a graph), and inside it the composite, quantise and
+  copy of that section's kept rows into the output.
 
 Times are ``time.perf_counter_ns()``.  ``enable()`` takes one anchor pair
 ``(time.time_ns(), time.perf_counter_ns())``: torch.profiler's events are
