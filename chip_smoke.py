@@ -8,7 +8,12 @@ Phases, one or more lines each:
 1. build   -- compile ``tpuao_torch/csrc`` with nvcc (sm_90a) and print the
               build time and each kernel's registers, shared memory and
               spills (a spill in the tiled render, upsample, fused,
-              zero-copy or DMA kernel fails);
+              zero-copy or DMA kernel fails), and the instructions of one
+              pair test in three instances, by kind (``cuobjdump -sass``);
+              then ``csrc/selftest.cu``:
+              the branch-free reciprocal and division against IEEE, and
+              the tangent term's two forms over the slopes and m2 of
+              1080p and 4K levels 1-4 (any mismatch of 1 +- rel fails);
 2. card    -- the card's name and power limit, from nvidia-smi;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the
               card, at the 1080p main path's shapes (max_abs_err <= 1e-5);
@@ -191,6 +196,7 @@ nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import pathlib
@@ -325,6 +331,113 @@ def ptxas_report(log: str) -> list[dict]:
             sm = re.search(r"(\d+) bytes smem", line)
             out[-1]["smem"] = int(sm.group(1)) if sm else 0
     return out
+
+
+# The instances the frame paths spend most of their time in, each with
+# its 10-pair twin: the 34-pair instance's count less the 10-pair one's,
+# over 24, is one pair (the code around the unrolled pairs is the same).
+PAIR_INSTANCES = (("fused_step_kernel<34, 3>", "fused_step_kernel<10, 3>"),
+                  ("render_kernel<34, 0, 4>", "render_kernel<10, 0, 4>"),
+                  ("render_kernel<34, 1, 1>", "render_kernel<10, 1, 1>"))
+
+
+def sass_ops(lib: pathlib.Path) -> dict[str, list[str]]:
+    """Each kernel's SASS opcodes with their modifiers (``cuobjdump
+    -sass``; predicates dropped, NOPs left out), keyed by ``short_name``."""
+    from tpuao_torch.ops import _build
+
+    tool = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out: dict[str, list[str]] = {}
+    ops = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            ops = out.setdefault(short_name(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if m and ops is not None and not m.group(1).startswith("NOP"):
+            ops.append(m.group(1))
+    return out
+
+
+def pair_sass(funcs: dict[str, list[str]]) -> dict[str, dict[str, float]]:
+    """Instructions of one pair test in each of ``PAIR_INSTANCES``, by
+    kind: FADD, FMUL and FFMA with and without ``.SAT``, FMNMX, LDS,
+    MUFU, FCHK, branches, and all."""
+    def kinds(ops):
+        c = collections.Counter()
+        for op in ops:
+            base = op.split(".")[0]
+            if base in ("FADD", "FMUL", "FFMA"):
+                c[base + (".SAT" if ".SAT" in op else "")] += 1
+            elif base in ("FMNMX", "LDS", "MUFU", "FCHK"):
+                c[base] += 1
+            elif base in ("BRA", "BRX", "JMP", "CALL", "RET", "BSSY",
+                          "BSYNC", "WARPSYNC"):
+                c["branch"] += 1
+            c["all"] += 1
+        return c
+
+    out = {}
+    for big, small in PAIR_INSTANCES:
+        a, b = kinds(funcs[big]), kinds(funcs[small])
+        out[big] = {k: round((a[k] - b[k]) / 24, 2)
+                    for k in sorted(set(a) | set(b))}
+    return out
+
+
+def tangent_ranges(widths=(1920, 3840), levels=(1, 2, 3, 4)):
+    """The tangent term's operands at the ULTRA parameters and the default
+    camera: (m2, x_max) of every pair of both tables at each level of
+    each frame width, with x_max = 20 * texel_scale * (|dx| + |dy|), the
+    largest |x| the slope clamp n_z >= 0.05 leaves a unit normal."""
+    import numpy as np
+
+    from tpuao_torch.models.presets import preset
+    from tpuao_torch.ops import kernels as K
+    from tpuao_torch.ops import render as R
+    from tpuao_torch.params import CameraParams
+
+    cam = CameraParams()
+    m2s, x_maxs = [], []
+    for w in widths:
+        for ex in (True, False):
+            par = preset("ULTRA").replace(exhaustive=ex)
+            offs = [abs(dx) + abs(dy) for dx, dy, _, _ in
+                    R._pair_constants(par)]
+            for level in levels:
+                ts = R.texel_scale(level, w, cam.tan_half_fov_h)
+                m2s.extend(K.tangent_m2(par, level, w, cam))
+                x_maxs.extend(20.0 * ts * o for o in offs)
+    return (np.asarray(m2s, np.float32), np.asarray(x_maxs, np.float32))
+
+
+def check_division(lib, dev) -> None:
+    """The branch-free reciprocal and division against the IEEE operations
+    (csrc/selftest.cu): every float with a normal reciprocal, 2^30
+    quotients, and the tangent term's two forms at 2^23 slopes for each
+    m2 of ``tangent_ranges``.  Raises on any mismatch but that of a
+    tangent term's rel where 1 + rel and 1 - rel agree."""
+    import torch
+
+    from tpuao_torch.ops import _build
+
+    m2, x_max = (torch.as_tensor(a, device=dev) for a in tangent_ranges())
+    bad = torch.zeros(4, dtype=torch.int64, device=dev)
+    _build.check(lib, lib.tpuao_check_division(
+        bad.data_ptr(), m2.data_ptr(), x_max.data_ptr(), m2.numel(), 0,
+        torch.cuda.current_stream(dev).cuda_stream), "tpuao_check_division")
+    n_rcp, n_div, n_e, n_rel = bad.tolist()
+    print(f"  rcp_rn vs IEEE reciprocal, 2,113,929,216 floats: {n_rcp} "
+          f"mismatches; div_rn vs IEEE division, 2^30 pairs: {n_div}")
+    print(f"  tangent term, div_rn vs IEEE, {m2.numel()} m2 of 1080p and 4K "
+          f"levels 1-4 x 2^23 slopes: {n_e} mismatches of 1 +- rel "
+          f"({n_rel} of rel's own bits: zeros and subnormal quotients)")
+    if n_rcp or n_div or n_e:
+        raise RuntimeError("the branch-free division differs from IEEE")
 
 
 class Checks:
@@ -3194,19 +3307,10 @@ def main(argv=None) -> int:
                                       "render_dma_kernel"))
         if tiled and k["spill"]:
             raise RuntimeError(f"{k['name']} spills {k['spill']} bytes")
-    # the chain stages' branch-free reciprocal and division against the
-    # IEEE operations (csrc/selftest.cu): every float with a normal
-    # reciprocal, 2^30 quotients
-    lib_ = _build.load()
-    bad = torch.zeros(2, dtype=torch.int64, device=dev)
-    _build.check(lib_, lib_.tpuao_check_division(
-        bad.data_ptr(), 0, torch.cuda.current_stream(dev).cuda_stream),
-        "tpuao_check_division")
-    n_rcp, n_div = bad.tolist()
-    print(f"  rcp_rn vs IEEE reciprocal, 2,113,929,216 floats: {n_rcp} "
-          f"mismatches; div_rn vs IEEE division, 2^30 pairs: {n_div}")
-    if n_rcp or n_div:
-        raise RuntimeError("the chain stages' division differs from IEEE")
+    for name, c in pair_sass(sass_ops(lib)).items():
+        print(f"  {name}, SASS a pair: " + ", ".join(
+            f"{k} {v:g}" for k, v in c.items()))
+    check_division(_build.load(), dev)
 
     # 2. card
     card = _card()

@@ -99,7 +99,7 @@ extern "C" int tpuao_render_ao_level_dma(const float* z, float* out,
                                          int device, void* stream) {
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || h < 4 || w < 4 || seg < 1 ||
-      seg > 160 || (h + seg - 1) / seg > 65535)
+      seg > 160 || (h + seg - 1) / seg > 65535 || !falloff_ok(falloff))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);

@@ -608,6 +608,139 @@ def test_tiled_fused_step_against_plain_and_zero_copy(dev, lh, lw):
         close(one, got[2], 0.0)
 
 
+CLAMP_CASES = [("render", 4), ("render", 2), ("render", 1), ("slopes", 1),
+               ("normals", 1), ("fused", 3), ("fused", 2), ("fused", 1),
+               ("fused_zc", None), ("render_dma", None)]
+W_4K = 3840  # the 4K ULTRA frame width: it sets each level's inv_r and m2
+
+
+def clamp_scenes(dev, h, w):
+    """Three levels whose pair tests land on the clamps: a plane at 0.5
+    (every zs/zc exactly 1: d == 1, falloff * d > 1), texels drawn from
+    0.25, 0.5 and 1.0 (ratios 1/4 to 4: d far below 0 and far above 1 at
+    4K's inv_r, and exact ties), and uniform noise."""
+    rng = np.random.default_rng(50)
+    steps = torch.as_tensor(rng.choice([0.25, 0.5, 1.0], size=(h, w)),
+                            dtype=torch.float32, device=dev)
+    return torch.stack([torch.full((h, w), 0.5, device=dev), steps,
+                        uniform(dev, (h, w), 0.05, 1.0, 51)])
+
+
+def clamp_slopes(dev, shape, level):
+    """The tangent term's extremes at a 4K level: (label, kwargs) of zero
+    slopes (x == 0, and -0.0), and of the steepest slopes the clamp n_z >=
+    0.05 allows on unit normals (n_z exactly 0.05, and 0.01 clamped to
+    it), in random directions, as slope planes and as raw normals."""
+    rng = np.random.default_rng(52 + level)
+    ang = rng.uniform(0.0, 2.0 * np.pi, shape)
+    ts0 = 2.0 * CAM.tan_half_fov_h / W_4K  # level-0 texel scale
+    out = []
+    for n_z in (0.05, 0.01):
+        s = np.sqrt(1.0 - n_z * n_z)
+        nx, ny = s * np.cos(ang), s * np.sin(ang)
+        nrm = np.stack([nx, ny, np.full(shape, n_z)], axis=-3)
+        g = ts0 / max(n_z, 0.05)
+        slopes = tuple(torch.as_tensor(a * g, dtype=torch.float32,
+                                       device=dev) for a in (nx, ny))
+        out += [(f"slopes n_z={n_z}", {"slopes_ds": slopes}),
+                (f"normals n_z={n_z}", {"normals_ds": torch.as_tensor(
+                    nrm, dtype=torch.float32, device=dev)})]
+    zero = torch.zeros(shape, device=dev)
+    flat = np.zeros(shape[:-2] + (3,) + shape[-2:])
+    flat[..., 2, :, :] = 1.0
+    out += [("slopes 0", {"slopes_ds": (zero, zero)}),
+            ("slopes -0", {"slopes_ds": (-zero, -zero)}),
+            ("normals flat", {"normals_ds": torch.as_tensor(
+                flat, dtype=torch.float32, device=dev)})]
+    return out
+
+
+@pytest.mark.parametrize("kernel,nt", CLAMP_CASES)
+def test_pair_test_at_its_clamps_bit_equal_to_plain(dev, kernel, nt):
+    """Every render instance on tiles whose pair tests land exactly on
+    the clamps (``clamp_scenes``), both pair tables, equals its plain
+    version bit for bit: the depth-only render at 4, 2 and 1 texels a
+    thread and the DMA render at levels 1 and 4 of 4K; the normals render
+    (slope planes, raw normals) at levels 1-4 of 4K ULTRA at zero and the
+    steepest slopes (``clamp_slopes``); the fused step at 3, 2 and 1
+    texels a thread and the zero-copy step against the upsample kernel on
+    the plain render (c1 = 1, so the pre-min passes the render through).
+    The falloff takes 2.5 and the ends of its range, 1 (where the falloff
+    product of the clamped d and of the raw d meet) and 10."""
+    from tpuao_torch.utils import launch_opts as L
+
+    z = clamp_scenes(dev, 70, 130)
+    name = {"render": "render_ao_level", "fused": "fused_render_upsample_step"}
+    L.clear_tuned_tiles()
+    try:
+        if nt is not None and kernel in name:
+            L.set_tuned_tiles(name[kernel], 3, 70, 130, nt)
+        for ex, falloff in ((True, 2.5), (False, 2.5), (True, 1.0),
+                            (False, 10.0)):
+            pu = preset("ULTRA").replace(exhaustive=ex,
+                                         rejection_falloff=falloff)
+            par = pu.replace(use_normals=False)
+            if kernel in ("slopes", "normals"):
+                for level in (1, 2, 3, 4):
+                    for label, kw in clamp_slopes(dev, (3, 70, 130), level):
+                        if kernel not in label:
+                            continue
+                        got = K.render_ao_level_normals(z, level, W_4K, CAM,
+                                                        pu, **kw)
+                        want = K.render_ao_level_normals_plain(
+                            z, level, W_4K, CAM, pu, **kw)
+                        assert torch.equal(got, want), (label, level, ex,
+                                                        falloff)
+            elif kernel in ("render", "render_dma"):
+                fn = (K.render_ao_level if kernel == "render"
+                      else K.render_ao_level_dma)
+                for level in (1, 4):
+                    want = K.render_ao_level_plain(z, level, W_4K, CAM, par)
+                    assert torch.equal(fn(z, level, W_4K, CAM, par),
+                                       want), (level, ex, falloff)
+            else:
+                fn = (K.fused_render_upsample_step if kernel == "fused"
+                      else K.fused_render_upsample_step_zc)
+                c1 = torch.ones_like(z)
+                hi = (z.repeat_interleave(2, -2).repeat_interleave(2, -1)
+                      + uniform(dev, (3, 140, 260), -0.01, 0.01, 53))
+                for crop in (None, (139, 259)):
+                    want = K.blur_upsample_step(
+                        c1, z, hi, par, W_4K, crop_hw=crop,
+                        lo_ao2=K.render_ao_level_plain(z, 1, W_4K, CAM, par))
+                    got = fn(z, c1, hi, 1, W_4K, CAM, par, crop_hw=crop)
+                    assert torch.equal(got, want), (crop, ex, falloff)
+    finally:
+        L.clear_tuned_tiles()
+
+
+@pytest.mark.parametrize("falloff", [0.5, 0.99999994, 10.000001,
+                                     float("nan")])
+def test_render_kernels_reject_a_falloff_outside_its_range(dev, falloff):
+    """Every kernel that renders forms the falloff product from the
+    clamped d, exact for a falloff of 1 or more (common.cuh), and rejects
+    one outside AOParams's range, 1..10, before it launches."""
+    z = uniform(dev, (64, 96), 0.2, 0.8, 26)
+    hi = uniform(dev, (128, 192), 0.2, 0.8, 27)
+    zero = torch.zeros_like(z)
+    pu = preset("ULTRA").replace(rejection_falloff=falloff)
+    par = pu.replace(use_normals=False)
+    calls = {
+        "render": lambda: K.render_ao_level(z, 1, 192, CAM, par),
+        "slopes": lambda: K.render_ao_level_normals(
+            z, 1, 192, CAM, pu, slopes_ds=(zero, zero)),
+        "fused": lambda: K.fused_render_upsample_step(z, z, hi, 1, 192, CAM,
+                                                      par),
+        "fused_zc": lambda: K.fused_render_upsample_step_zc(z, z, hi, 1, 192,
+                                                            CAM, par),
+        "render_dma": lambda: K.render_ao_level_dma(z, 1, 192, CAM, par),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call()
+            pytest.fail(name)
+
+
 def test_variants_raise_on_what_the_kernels_do_not_take(dev):
     z = uniform(dev, (64, 96), 0.2, 0.8, 24)
     hi = uniform(dev, (128, 192), 0.2, 0.8, 25)

@@ -33,16 +33,16 @@
 // g * RN(1/x), the same float whenever 1/x is a normal float (PyTorch's
 // own float / tensor is that form too).  The filter's centre weight is
 // g / (1 + nfs*0) = 4 exactly and is not divided for.  Every reciprocal
-// and division is rounded to nearest without a branch (rcp_rn, div_rn
-// below): the IEEE operations are a fast path behind a range check and a
-// branch to a slow path, and with 31 of them a lo texel (8 + 1 in the
-// filter, 9 + 9 + 4 in the 2x) those branches kept the compiler from
+// and division is rounded to nearest without a branch (rcp_rn and div_rn,
+// common.cuh): the IEEE operations are a fast path behind a range check
+// and a branch to a slow path, and with 31 of them a lo texel (8 + 1 in
+// the filter, 9 + 9 + 4 in the 2x) those branches kept the compiler from
 // interleaving the independent weights: the branch-free forms made the
 // upsample step about twice and the fused step about 1.3 times as fast
-// (PERF.md).  They give the IEEE bits wherever no reciprocal or
-// quotient is subnormal or overflows
-// (csrc/selftest.cu checks every float's reciprocal and 2^30 quotients
-// on the card); a weight below 2^-126 may flush to zero.
+// (PERF.md).  They give the IEEE bits wherever no reciprocal or quotient
+// is subnormal or overflows (csrc/selftest.cu checks every float's
+// reciprocal and 2^30 quotients on the card); a weight below 2^-126 may
+// flush to zero.
 #pragma once
 
 #include <cstdint>
@@ -130,27 +130,6 @@ __device__ __forceinline__ void stage_hi_rows(float* dst, const float* src,
       cp_async4(d + 1, s + 1);
     }
   }
-}
-
-// 1/x rounded to nearest, without a branch: the approximate reciprocal
-// (rcp.approx.ftz: within an ulp) and one Newton step on FMAs.  Equal to
-// the IEEE reciprocal for every x with a normal reciprocal
-// (2^-126 <= |x| < 2^126; checked for each such float on the card).
-__device__ __forceinline__ float rcp_rn(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return __fmaf_rn(y, __fmaf_rn(-x, y, 1.0f), y);
-}
-
-// a/b rounded to nearest, without a branch: q = a * RN(1/b) is within an
-// ulp of a/b, its remainder a - b*q is exact on an FMA, and one
-// correction with RN(1/b) rounds correctly (Markstein's theorem), for
-// operands whose quotient, reciprocal and remainder neither overflow nor
-// underflow.
-__device__ __forceinline__ float div_rn(float a, float b) {
-  const float y = rcp_rn(b);
-  const float q = __fmul_rn(a, y);
-  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
 }
 
 // The frame-edge slots of thread (tx, ty)'s column -- slot (ty + 8k, tx)

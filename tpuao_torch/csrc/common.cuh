@@ -96,6 +96,27 @@ __device__ __forceinline__ int parity4(int r, int n) {
   return r;
 }
 
+// 1/x rounded to nearest, without a branch: the approximate reciprocal
+// (rcp.approx.ftz: within an ulp) and one Newton step on FMAs.  Equal to
+// the IEEE reciprocal for every x with a normal reciprocal
+// (2^-126 <= |x| < 2^126; checked for each such float on the card).
+__device__ __forceinline__ float rcp_rn(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return __fmaf_rn(y, __fmaf_rn(-x, y, 1.0f), y);
+}
+
+// a/b rounded to nearest, without a branch: q = a * RN(1/b) is within an
+// ulp of a/b, its remainder a - b*q is exact on an FMA, and one
+// correction with RN(1/b) rounds correctly (Markstein's theorem), for
+// operands whose quotient, reciprocal and remainder neither overflow nor
+// underflow.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const float y = rcp_rn(b);
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+}
+
 // The estimator of tpuao/ops/pallas_kernels.py::_render_kernel, in pieces
 // that every render-based kernel composes in the same order, so kernels
 // that see the same tap values give the same bits.  The pair test uses the
@@ -105,12 +126,30 @@ __device__ __forceinline__ int parity4(int r, int n) {
 // into FMAs).  A contracted form differs from the plain version by up to a
 // few ulp of zs/zc, and inv_r (large at 4K and 8K) amplifies that to over
 // 1e-6.  So the kernels issue no FMA here: each pair is 23 rounded FP32
-// operations depth-only (8 for the two d, 2 falloff products, 8 clamps, 2
-// max, 3 for the weighted sum), about 11 more with the tangent term.
+// operations depth-only in the source (8 for the two d, 2 falloff
+// products, 8 clamps, 2 max, 3 for the weighted sum).  ptxas folds each
+// clamp01 into the saturate modifier of the add or multiply it clamps
+// (FADD.SAT, FMUL.SAT).
+//
+// The falloff product p = clamp01(falloff * d) is formed from the clamped
+// d: for falloff >= 1 the two are equal bit for bit.  d in [0, 1] is its
+// own clamp; d > 1 gives falloff * d >= 1 and falloff * 1 >= 1, both
+// clamped to 1; d < 0 (or NaN) gives 0 either way.  So the pair forms
+// clamp01(d) alone, as one FADD.SAT on 1 + t, and never the raw d: a
+// depth-only pair issues 15 FP32 instructions and 2 LDS, 18.3 in all (17
+// FP32, 20.3 in all, with the raw d; SASS on sm_90a, the 34-pair instance
+// less the 10-pair one over 24: chip_smoke.py phase 1, PERF.md).  Every
+// launcher rejects a falloff outside AOParams's range (falloff_ok).
+
+// Whether a launch's falloff is one the pair test takes: AOParams's range
+// of rejection_falloff, 1..10 (pair_vis needs falloff >= 1).
+inline bool falloff_ok(float falloff) {
+  return falloff >= 1.0f && falloff <= 10.0f;
+}
 
 // One pair's weighted visibility: taps zs1 = z(+d), zs2 = z(-d) against
 // the centre's 1/z, expected depth ratios e1, e2 (1 +- rel; 1 without
-// normals).
+// normals); falloff >= 1 (see above).
 __device__ __forceinline__ float pair_vis(float zs1, float zs2, float inv_zc,
                                           float e1, float e2, float inv_r,
                                           float half_w, float falloff) {
@@ -118,20 +157,41 @@ __device__ __forceinline__ float pair_vis(float zs1, float zs2, float inv_zc,
       1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs1, inv_zc), e1), inv_r));
   const float d2 = __fadd_rn(
       1.0f, __fmul_rn(__fsub_rn(__fmul_rn(zs2, inv_zc), e2), inv_r));
-  const float p1 = clamp01(__fmul_rn(falloff, d1));
-  const float p2 = clamp01(__fmul_rn(falloff, d2));
-  return __fmul_rn(half_w, __fadd_rn(fmaxf(clamp01(d1), p2),
-                                     fmaxf(clamp01(d2), p1)));
+  const float c1 = clamp01(d1), c2 = clamp01(d2);
+  const float p1 = clamp01(__fmul_rn(falloff, c1));
+  const float p2 = clamp01(__fmul_rn(falloff, c2));
+  return __fmul_rn(half_w, __fadd_rn(fmaxf(c1, p2), fmaxf(c2, p1)));
 }
+
+// The tangent term (normals path) divides by div_rn, not by IEEE division,
+// whose fast path sits behind a range check (FCHK) and a branch to a slow
+// path: 34 of them a texel kept ptxas from interleaving the pairs, as the
+// chain stages' divisions did (chain_step.cuh).  A slope-planes pair took
+// 41.5 instructions with 4 branches, 32.9 with div_rn and none, and 31.0
+// without the raw d (see above); the normals render of a 4K frame's levels
+// 1-4 runs about 1.6 times as fast (PERF.md).  The two divisions give the
+// same 1 +- rel, which is all the pair test reads of rel, for these
+// operands: m2 = (0.5 * radius_coef * t)^2 of a level
+// (ops/kernels.tangent_m2) is 7.2e-6 .. 8.9e-3 at levels 1-4 of 1080p and
+// 4K, and far above 2^-77 at any frame width; |x| <= 20 * texel_scale *
+// (|dx| + |dy|) (the slope clamp n_z >= 0.05 on unit normals), at most 4.7
+// there.  So b = m2 + x^2 has a normal reciprocal, |rel| <= sqrt(m2) / 2
+// cannot overflow, and the quotient or remainder is subnormal only where
+// |x * m2| < 2^-103, where |rel| < 2^-25 and 1 + rel and 1 - rel round to
+// 1 in both forms (a zero rel of either sign is such a case).  That holds
+// for every |x| < 2^64; past it x * x overflows, and IEEE gives rel = 0
+// where div_rn gives NaN, at slopes no normal of unit length gives.
+// chip_smoke.py sweeps both forms over these ranges on the card
+// (csrc/selftest.cu).
 
 // The normals path's soft-clamped tangent-plane offset of one pair:
 // rel = x m2 / (m2 + x^2) with x = gx*ox + gy*oy, where (gx, gy) is the
 // texel's tangent slope per unit of pair offset divided by off_scale and
-// (ox, oy) = (dx, dy) * off_scale.  The division is IEEE.
+// (ox, oy) = (dx, dy) * off_scale.  The division is div_rn (see above).
 __device__ __forceinline__ float tangent_rel(float gx, float gy, float ox,
                                              float oy, float m2) {
   const float x = __fadd_rn(__fmul_rn(gx, ox), __fmul_rn(gy, oy));
-  return __fmul_rn(x, m2) / __fadd_rn(m2, __fmul_rn(x, x));
+  return div_rn(__fmul_rn(x, m2), __fadd_rn(m2, __fmul_rn(x, x)));
 }
 
 // powf(0, s) is exactly 0 for every strength in range (s >= 0.1), which

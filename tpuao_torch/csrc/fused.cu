@@ -3,12 +3,19 @@
 // Replaces tpuao/ops/pallas_kernels.py::fused_render_upsample_step (bodies
 // _fused_l1_kernel -> _fused_l1_body).
 //
-// What bounds it on the H100: arithmetic, from the render.  Each lo texel
-// is rendered (34 pair tests, ~788 FP32 operations, none of them an FMA:
-// common.cuh) and filtered and lifted 2x (~153 more); against that it
-// reads its depth, c1 and four hi depths and writes four hi texels, 40
-// bytes.  At 67 TFLOP/s the 4K step 1->0 (2,088,960 lo texels) takes
-// 29.3 us and its 84 MB 25 us; the 1080p steps 3->2 .. 1->0 9.6 us.
+// What bounds it on the H100: instruction issue, from the render.  Each lo
+// texel is rendered (34 pair tests, ~788 FP32 operations in the work
+// model, none of them an FMA: common.cuh) and filtered and lifted 2x (~153
+// more); against that it reads its depth, c1 and four hi depths and
+// writes four hi texels, 40 bytes.  At 67 TFLOP/s the 4K step 1->0
+// (2,088,960 lo texels) takes 29.3 us and its 84 MB 25 us; the 1080p steps
+// 3->2 .. 1->0 9.6 us.  A pair issues 15 FP32 instructions and 2 shared
+// loads, 18.3 in all (20.3 with the raw d, which a falloff of 1 or more
+// does not need; ptxas folds the clamps into FADD.SAT and FMUL.SAT; SASS
+// of sm_90a, PERF.md), each needed at the plain version's rounding, and
+// the extended tile renders 1.2 times the texels written: issue slots
+// bound the step, whose ceiling without FMAs is half the work bound's
+// rate.
 //
 // Design: a block of 64 x 8 threads owns OH x OW = (8*NT - 3) x 61 lo
 // texels and renders their extended tile of 8*NT x 64 (1.20x the texels it
@@ -175,7 +182,8 @@ int fused_kernel_params(const void* func) {
 // ds, c1: (batch, lh, lw); hi_d: (batch, 2lh, 2lw); out: (batch, h0, w0),
 // all float32 on the device; pairs: host array of npairs tpuao::Pair of
 // this level; nt: texels a thread (3, 2 or 1).  Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for an nt with no instance).
+// cudaError_t (cudaErrorInvalidValue for an nt with no instance or a
+// falloff outside 1..10).
 extern "C" int tpuao_fused_render_upsample_step(
     const float* ds, const float* c1, const float* hi_d, float* out,
     int batch, int lh, int lw, int h0, int w0, const void* pairs, int npairs,
@@ -183,7 +191,7 @@ extern "C" int tpuao_fused_render_upsample_step(
     int nt, int device, void* stream) {
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || lh < 4 || lw < 4 || h0 < 1 || w0 < 1 ||
-      h0 > 2 * lh || w0 > 2 * lw || !chain_nt_ok(nt))
+      h0 > 2 * lh || w0 > 2 * lw || !chain_nt_ok(nt) || !falloff_ok(falloff))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);

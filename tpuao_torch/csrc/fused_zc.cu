@@ -254,7 +254,8 @@ cudaError_t launch_zc(const ChainArgs& a, const PairTable& pt, int batch,
 // ds, c1: (batch, lh, lw); hi_d: (batch, 2lh, 2lw); out: (batch, h0, w0),
 // all float32 on the device; seg: lo rows per block segment (the
 // wrapper's R); pairs: host array of npairs tpuao::Pair of this level.
-// Returns the launch's cudaError_t.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a falloff
+// outside 1..10).
 extern "C" int tpuao_fused_render_upsample_step_zc(
     const float* ds, const float* c1, const float* hi_d, float* out,
     int batch, int lh, int lw, int h0, int w0, int seg, const void* pairs,
@@ -262,7 +263,7 @@ extern "C" int tpuao_fused_render_upsample_step_zc(
     float nfs, int device, void* stream) {
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || lh < 4 || lw < 4 || seg < 1 || h0 < 1 ||
-      w0 < 1 || h0 > 2 * lh || w0 > 2 * lw)
+      w0 < 1 || h0 > 2 * lh || w0 > 2 * lw || !falloff_ok(falloff))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);

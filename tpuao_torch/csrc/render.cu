@@ -5,15 +5,22 @@
 // _render_kernel): the use_normals=False branch (tpuao_render_ao_level)
 // and the use_normals=True branch (tpuao_render_ao_level_normals).
 //
-// What bounds it on the H100: arithmetic.  A texel runs 34 pair tests of
-// 23 FP32 operations (about 34 with the tangent term, one of them an IEEE
-// division): ~788 operations depth-only, ~1164 with normals, against 8
-// bytes of traffic (16 with slope planes, 20 with raw normals).  At
-// 67 TFLOP/s that is 24.6 us for level 1 of a 4K frame (2,088,960
-// texels), and the bytes would take 5 us.  Every step of the pair test
-// rounds on its own, as the plain version does (common.cuh), so the
-// kernel issues no FMA and its real ceiling is half that rate; ten of the
-// 23 operations are min/max.
+// What bounds it on the H100: instruction issue.  A texel runs 34 pair
+// tests of 23 FP32 operations in the work model (about 34 with the
+// tangent term, one of them a division): ~788 operations depth-only,
+// ~1164 with normals, against 8 bytes of traffic (16 with slope planes, 20
+// with raw normals).  At 67 TFLOP/s that is 24.6 us for level 1 of a 4K
+// frame (2,088,960 texels), and the bytes would take 5 us.  Every step of
+// the pair test rounds on its own, as the plain version does (common.cuh),
+// so the kernel issues no FMA and its real ceiling is half that rate.
+// ptxas folds the 8 clamps into saturating adds and multiplies, and the
+// pair never forms the raw d (falloff >= 1, common.cuh): a depth-only
+// pair issues 15 FP32 instructions and 2 shared loads, 18.3 in all (20.3
+// with the raw d); a slope-planes pair 31.0 with the tangent term's
+// branch-free division (41.5, 4 of them branches, with IEEE division and
+// the raw d; SASS of sm_90a, PERF.md).  What is left is the plain
+// version's rounding: every instruction of a pair is needed at the
+// same bits, so issue slots bound the kernel.
 //
 // Design: a block of 64 x 8 threads owns a tile of 8*NT rows x 64 columns
 // and stages it with its 16-texel halo once, by cp.async (16 bytes where
@@ -35,9 +42,11 @@
 // __grid_constant__ pair table) and the normals path's off_scale /
 // texel_scale are runtime data, so nothing rebuilds when they change.
 //
-// Measured (H100 SXM, 700 W; PERF.md, chip_smoke.py phase 12): level 1 of
-// 4K 0.0579 ms, 42% of its 24.6 us bound; with slope planes, levels 1-4
-// of four 1080p frames 0.2490 ms, 19% of their 48 us bound.
+// Measured (H100 SXM, 700 W; PERF.md, chip_smoke.py phase 12): level 1
+// of 4K 0.0533 ms, 46% of its 24.6 us bound, about 92% of the no-FMA
+// ceiling (0.0575 with the raw d); with slope planes, levels 1-4 of a 4K
+// frame 0.140 ms, 34% of their 48 us bound (0.237 ms with IEEE division
+// and the raw d).
 
 #include "tile.cuh"
 
@@ -147,7 +156,7 @@ cudaError_t launch_render(const float* z, const float* a, const float* b,
                           int device, void* stream) {
   if (batch < 1 || batch > 65535 || h < 4 || w < 4 ||
       (h + kRenderThreadRows - 1) / kRenderThreadRows > 65535 ||
-      !render_nt_ok(MODE, nt))
+      !render_nt_ok(MODE, nt) || !falloff_ok(falloff))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, m2, npairs, pt);
@@ -176,7 +185,7 @@ const char* tpuao_error_string(int err) {
 // z, out: (batch, h, w) float32 on the device; pairs: host array of
 // npairs tpuao::Pair of this level; nt: texels a thread (4, 2 or 1).
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for an nt with
-// no instance).
+// no instance or a falloff outside 1..10).
 int tpuao_render_ao_level(const float* z, float* out, int batch, int h, int w,
                           const void* pairs, int npairs, float falloff,
                           float strength, int nt, int device, void* stream) {

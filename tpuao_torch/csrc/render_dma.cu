@@ -194,7 +194,8 @@ cudaError_t launch_dma(const float* z, float* out, int batch, int h, int w,
 // z, out: (batch, h, w) float32 on the device; seg: rows per block
 // segment, 1..160 (the wrapper's kernels.dma_rows; the result does not
 // depend on it); pairs: host array of npairs tpuao::Pair of this level.
-// Returns the launch's cudaError_t.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a falloff
+// outside 1..10).
 extern "C" int tpuao_render_ao_level_dma(const float* z, float* out,
                                          int batch, int h, int w, int seg,
                                          const void* pairs, int npairs,
@@ -202,7 +203,7 @@ extern "C" int tpuao_render_ao_level_dma(const float* z, float* out,
                                          int device, void* stream) {
   using namespace tpuao;
   if (batch < 1 || batch > 65535 || h < 4 || w < 4 || seg < 1 ||
-      seg > kDmaMaxSeg || (h + seg - 1) / seg > 65535)
+      seg > kDmaMaxSeg || (h + seg - 1) / seg > 65535 || !falloff_ok(falloff))
     return cudaErrorInvalidValue;
   PairTable pt;
   cudaError_t err = make_pair_table(pairs, nullptr, npairs, pt);

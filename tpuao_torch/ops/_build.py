@@ -70,7 +70,7 @@ SIGNATURES = {
     "tpuao_prepare_levels": (
         _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _P, _L, _L, _L, _L, _F,
         _P, _I, _P),
-    "tpuao_check_division": (_P, _I, _P),
+    "tpuao_check_division": (_P, _P, _P, _I, _I, _P),
     "tpuao_graph_find": (_P, _P, _P, _P, _L, _P, _I),
     "tpuao_graph_bind": (_P, _P, _P, _P, _P),
 }
