@@ -1,7 +1,10 @@
 """The two readings a check's limit is set from, on the chip, in one
 process: the program's widest gap from the reference over many seeds
 (each a whole run of the cell, at its own size and load, with a short
-window), and the control's (``control.py``) on the first few of them.
+window), and the control's (``control.py``) on the first few of them,
+on the inputs and sample keys of that seed's run.  Both take the traffic
+kind's ``reference`` where it defines one; where it gives an allowance, a
+row also holds ``loosened_pct``.
 
     python3 aobench/readings.py --workload <cell> --seeds 1,2,3 \
         --seconds 2 --control 3 [--out aobench/out/readings.jsonl]
@@ -32,7 +35,6 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     from aobench import harness
     from aobench.control import control_gap
-    from aobench.scenes import dolly_pool
 
     shape = (tuple(int(v) for v in a.shape.split("x")) if a.shape
              else None)
@@ -42,20 +44,19 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     rows = []
     for k, seed in enumerate(seeds):
+        run = {}
         res, _ = harness.run_cell(a.workload, seed, a.seconds, False,
-                                  device=a.device, shape=shape)
+                                  device=a.device, shape=shape, keep=run)
         row = {"cell": a.workload, "seed": seed, "correct": res["correct"],
                "program": res["check"]["max_abs_err"]["value"],
                "attempted": res["attempted"], "failed": res["failed"]}
+        if "loosened_pct" in res["check"]:
+            row["loosened_pct"] = res["check"]["loosened_pct"]["value"]
         if k < a.control:
-            h, w = shape or (cfg["frame"]["height"], cfg["frame"]["width"])
-            depth, normals = dolly_pool(
-                h, w, wl["pool"], seed, cfg["camera"], a.device,
-                n_spheres=wl["n_spheres"], dolly_step=wl["dolly_step"],
-                with_normals=cfg["ao"]["use_normals"])
-            row["control"] = control_gap(depth, normals, cfg,
-                                         range(min(4, wl["pool"])))
-            del depth, normals
+            row["control"] = control_gap(
+                run["pool"], cfg, [key for key, _ in run["samples"]],
+                a.device, workload=wl, reference=run["reference"])
+        del run
         rows.append(row)
         print(json.dumps(row), flush=True)
         with open(out, "a") as f:

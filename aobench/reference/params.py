@@ -113,3 +113,25 @@ def padded_shape(h: int, w: int, multiple: int = PAD_MULTIPLE):
         return (v + multiple - 1) // multiple * multiple
 
     return r(h), r(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class Temporal:
+    """The tunables of the temporal resolve, under the program's names,
+    and the level it resolves at (0 full resolution, 1 the level-1
+    field before the last upsample)."""
+
+    history_weight: float = 0.9
+    depth_tolerance: float = 0.1
+    neighborhood_clamp: bool = True
+    max_displacement: int | None = 4
+    resolve_level: int = 0
+
+
+def temporal_from_config(cfg: dict) -> Temporal:
+    """``Temporal`` of a configuration file's ``temporal`` group; raises
+    where the file has none."""
+    if "temporal" not in cfg:
+        raise ValueError(f"configuration {cfg.get('name')!r} has no "
+                         "temporal group")
+    return Temporal(**cfg["temporal"])

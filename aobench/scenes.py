@@ -97,6 +97,23 @@ def to_hardware_depth(z01: torch.Tensor, camera: dict) -> torch.Tensor:
     return d if camera["reversed_z"] else 1.0 - d
 
 
+def dolly_view(frame: int, dolly_step: float) -> list[list[float]]:
+    """The (4, 4) world->eye matrix of dolly frame ``frame``, row-major:
+    the camera sits at (0, 0, ``frame * dolly_step``) and does not turn."""
+    return [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+            [0.0, 0.0, 1.0, -frame * dolly_step], [0.0, 0.0, 0.0, 1.0]]
+
+
+def dolly_motion(dolly_step: float) -> list[list[float]]:
+    """The (4, 4) current->previous eye transform of one dolly step
+    (``view_prev @ inv(view_curr)``): the previous camera stood
+    ``dolly_step`` behind, so a point lies that much farther from it.  A
+    move along z alone, so it reads the same whether eye y points up (the
+    temporal spec) or down (``raycast``)."""
+    return [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
+            [0.0, 0.0, 1.0, float(dolly_step)], [0.0, 0.0, 0.0, 1.0]]
+
+
 def dolly_pool(h: int, w: int, n_frames: int, seed: int, camera: dict,
                device, n_spheres: int = 8, dolly_step: float = 0.05,
                with_normals: bool = False):

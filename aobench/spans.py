@@ -25,9 +25,8 @@ The profiled pass reads besides:
   (the benchmark's loop and synchronise).
 
 The profiler slows the host and adds records of its own to every aten op,
-so the host times of the readers (``entry_self_ms``, ``prepare_host_ms``,
-``wrapper_host_ms``) come from the pass without it; ``issue_idle_ms``
-comes from the profiled one.
+so the host times of the readers (``entry_self_ms``) come from the pass
+without it; ``issue_idle_ms`` comes from the profiled one.
 
 The frame loop of a traced run (``frameloop.run``) makes this phase once,
 after the window and its profiled calls, on the window's own call (its
@@ -50,8 +49,6 @@ OUTSIDE = "outside"
 UNJOINED = "unjoined"
 LAUNCH = "ao_launch"
 ENTRY_PREFIX = "ao_entry."
-PROLOGUE = ("ao_prepare", "ao_slopes")
-STAGE = re.compile(r"^ao_(render|upsample|fused)_l\d+$")
 # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, ...):
 # their correlation ids are the device records'; a torch op's are its own
 RUNTIME = re.compile(r"^cu(da)?[A-Z]")

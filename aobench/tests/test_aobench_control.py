@@ -20,7 +20,7 @@ def _gap(cell, seed, device, shape=None):
                                 n_spheres=wl["n_spheres"],
                                 dolly_step=wl["dolly_step"],
                                 with_normals=cfg["ao"]["use_normals"])
-    return control_gap(depth, normals, cfg, range(2)), wl
+    return control_gap((depth, normals), cfg, range(2), device), wl
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -23,7 +23,6 @@ NEW = ("shard_host_ms.mesh", "shard_device_ms.mesh",
        "card_idle_share.mesh", "roofline_pct.mesh")
 SHARED = ("host_ms_per_call.frame", "launches_per_frame.frame",
           "library_kernel_ms.frame", "entry_self_ms.frame",
-          "wrapper_host_ms.frame", "prepare_host_ms.frame",
           "graph_replay_pct.frame", "graph_pool_mb")
 UNIONS = ("idle_share.frame", "roofline_pct.frame", "issue_idle_ms.frame")
 PER_CALL = 99_532_800  # 3 cards x 2 views x 1080 x 1920 x 4 B, in and out
@@ -49,9 +48,15 @@ def test_the_cells_metrics():
     bench = harness.spec()
     e2e = {m["name"] for m in harness.metrics_for(bench, CELL, False)}
     assert e2e == {"frame_ms", "peak_mem_mb", "setup_s"}
-    layer = [m["name"] for m in harness.metrics_for(bench, CELL, True)]
-    assert set(layer) == set(SHARED) | set(NEW)
-    assert not set(layer) & set(UNIONS)
+    layer = {m["name"] for m in harness.metrics_for(bench, CELL, True)}
+    # the sharding layer's own; besides them only what the one-card rig
+    # reports too, the shared ones among it, whatever later cells add
+    one_card = {m["name"] for m in harness.metrics_for(bench,
+                                                       "high_1080p.rig8",
+                                                       True)}
+    assert set(SHARED) | set(NEW) <= layer
+    assert layer - set(NEW) <= one_card
+    assert not layer & set(UNIONS)
     for m in bench["per_layer"]:
         if m["name"] in NEW:
             assert m["workloads"] == [CELL] and m["moves"] == "frame_ms"

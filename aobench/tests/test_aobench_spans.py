@@ -132,10 +132,7 @@ def test_readers_sum_their_spans():
         return harness.load_module(AOB / "metrics" / f"{name}.py").read(rec)
 
     assert read("entry_self_ms.frame") == pytest.approx(1.25e-3)
-    assert read("prepare_host_ms.frame") == pytest.approx(1.0e-3)
-    assert read("wrapper_host_ms.frame") == pytest.approx(1.75e-3)
-    for name in ("entry_self_ms", "prepare_host_ms", "wrapper_host_ms",
-                 "issue_idle_ms"):
+    for name in ("entry_self_ms", "issue_idle_ms"):
         assert read(f"{name}.frame_p95") == read(f"{name}.frame")
         # a program without spans, or a run without a card: nothing read
         assert harness.load_module(
